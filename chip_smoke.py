@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/qwen3_tts_tpu_torch``) on one
+NVIDIA GPU: the quickest proof that the port builds, is right, and runs.
+
+    python3 chip_smoke.py            # all phases, one GPU
+    python3 chip_smoke.py --profile  # all phases, then a traced run
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+
+1. build every CUDA kernel from ``src/qwen3_tts_tpu_torch/csrc`` with nvcc
+   for sm_90a (one nvcc per source, started together) into build/kernels/;
+2. hold each kernel against its plain PyTorch version on the card at every
+   flagship (N, K) at the row counts the main path plans for it (M=1, the
+   decode chunks, the prefill rows) plus one tiny shape, in bf16, with
+   max|kernel - plain| <= 1e-2 * max|plain|; time kernel, plain version,
+   and a library yardstick (plain dequantization plus one torch.matmul),
+   and compute the bound (bytes over 3.35 TB/s vs operations over
+   989 TFLOP/s, whichever is larger);
+3. a tiny model on the card (kernels) against the same model on the CPU
+   (plain versions): prefill logits within tolerance, greedy codes printed;
+4. the main path at the flagship's full width, grouped int8 layout:
+   load_model("synthetic:flagship") -> generate_audio -> audio_000.wav,
+   checked (mono 16-bit 24 kHz, frames x 2000 samples, finite, not
+   silent) with kernel A's launches counted;
+5. the same under QWEN3_TTS_INT8_LAYOUT=rowmajor, kernel B's launches
+   counted;
+6. every (M, N, K, gs) a kernel ran on the main path that phase 2 did not
+   cover is held against its plain version the same way (the wrappers
+   record the shapes of their launches).
+
+Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
+precision reductions in bf16 matmuls.
+
+Output: one line per shape and phase, then a ``{"kernels": [...]}`` line,
+the card's name and power limit from nvidia-smi, and last
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import wave
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = ROOT / "src" / "qwen3_tts_tpu_torch"
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TOL = 1e-2                    # max|kernel - plain| <= TOL * max|plain| (bf16)
+
+# (N, K) of every int8 linear on the flagship main path
+# talker: q, k/v, o, gate/up, down, codec head; code predictor (fused
+# decode layout): in_proj, qkv, o, gate_up, down
+FLAGSHIP_NK = (
+    (2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144), (2051, 2048),
+    (3072, 1024), (1024, 1024), (6144, 1024), (1024, 3072),
+)
+GS = 64
+TINY = (67, 64, 16)  # (N, K, gs)
+REPRESENTATIVE = (1, 6144, 2048)  # (M, N, K) reported in the kernels line
+MAIN_FRAMES = 64  # frames of the measured main-path run
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def device_time_ms(torch, fn, arg_sets, batches: int = 5, per_batch: int = 10):
+    """Median per-call device time: each batch of calls is enqueued behind a
+    spin kernel, so the card runs them back to back and the host's launch
+    cost is hidden; arguments rotate over copies larger than the L2."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    pairs = []
+    for b in range(batches):
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(per_batch):
+            fn(*arg_sets[(b * per_batch + i) % len(arg_sets)])
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) / per_batch for s, e in pairs)
+
+
+def bound_ms(m: int, n: int, k: int, gs: int) -> tuple[float, str]:
+    g = k // gs
+    nbytes = m * k * 2 + n * k + 2 * g * n * 4 + m * n * 2
+    ops = 2 * m * n * k + 2 * m * g * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_build():
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    t0 = time.perf_counter()
+    cuda_kernels.build_all()
+    build_s = time.perf_counter() - t0
+    for k in cuda_kernels.KERNELS:
+        ptxas = [ln.strip() for ln in k.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log({"phase": "build", "kernel": k.name, "library": str(
+            k.library_path().relative_to(ROOT)), "ptxas": ptxas})
+    log({"phase": "build", "build_s": round(build_s, 3)})
+
+
+def _weights(torch, n, k, gs, gen, dev):
+    q = torch.randint(0, 256, (n, k), dtype=torch.uint8, generator=gen,
+                      device=dev)
+    g = k // gs
+    scale = (torch.rand((n, g), generator=gen, device=dev) + 0.5) * (0.04 / 255)
+    bias = -0.01 - 0.02 * torch.rand((n, g), generator=gen, device=dev)
+    return q, scale, bias
+
+
+def planned_cases() -> list[tuple]:
+    """(kernel, M, N, K, gs) for the kernel phase: every flagship (N, K) at
+    the rows the main path gives each kernel -- M=1 (talker decode), the
+    code predictor's decode chunks of a MAIN_FRAMES-frame utterance, and
+    the prefill rows (A up to its 64-row limit, B the 128-row prompt
+    bucket) -- plus one tiny shape with a ragged N and gs=16."""
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.runtime.generate import (
+        chunk_plan, default_chunk_schedule,
+    )
+
+    chunks = set(chunk_plan(default_chunk_schedule(configs.flagship().talker),
+                            MAIN_FRAMES))
+    rows = {"grouped_qmv": {1, 8, 32, 64} | chunks,
+            "dequant_matmul": {1, 32, 128} | chunks}
+    cases = [(name, m, n, k, GS) for n, k in FLAGSHIP_NK
+             for name, ms in rows.items() for m in sorted(ms)]
+    n, k, gs = TINY
+    return cases + [("grouped_qmv", 3, n, k, gs), ("dequant_matmul", 3, n, k, gs)]
+
+
+def phase_kernels(torch, cases, checked: dict, source: str) -> None:
+    """Hold each case's kernel against its plain version on the card and
+    time kernel, plain version and library yardstick; rows go into
+    ``checked`` keyed by case. ``source`` says where the shapes came from."""
+    from qwen3_tts_tpu_torch.ops.dequant_matmul import (
+        dequant_matmul_cuda, dense_matmul, quantized_matmul_ref,
+    )
+    from qwen3_tts_tpu_torch.ops.grouped_qmv import (
+        _dense_route, grouped_qmv_cuda, pack_grouped,
+        quantized_matmul_grouped_ref,
+    )
+    from qwen3_tts_tpu_torch.ops.quant import dequantize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(len(checked))
+
+    def lib_rowmajor(x, q, s, b):
+        return dense_matmul(x, dequantize({"q": q, "scale": s, "bias": b},
+                                          dtype=x.dtype))
+
+    fns = {
+        "grouped_qmv": (grouped_qmv_cuda, quantized_matmul_grouped_ref,
+                        _dense_route),
+        "dequant_matmul": (dequant_matmul_cuda, quantized_matmul_ref,
+                           lib_rowmajor),
+    }
+    for case in cases:
+        name, m, n, k, gs = case
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        per_copy = n * k + 2 * (k // gs) * n * 4
+        copies = max(1, min(32, math.ceil(128e6 / per_copy)))
+        sets = []
+        for _ in range(copies):
+            q, s, b = _weights(torch, n, k, gs, gen, dev)
+            if name == "grouped_qmv":
+                gp = pack_grouped({"q": q, "scale": s, "bias": b})
+                sets.append((x, gp["qg"], gp["sg"], gp["bg"]))
+            else:
+                sets.append((x, q, s, b))
+        kern, plain, lib = fns[name]
+        got = kern(*sets[0])
+        want = plain(*sets[0])
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{name} M={m} N={n} K={k}: shape {tuple(got.shape)} != "
+                 f"{tuple(want.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        scale_ref = want.float().abs().max().item()
+        if not math.isfinite(err) or err > TOL * scale_ref:
+            fail(f"{name} M={m} N={n} K={k} gs={gs}: max|kernel-plain| {err} "
+                 f"> {TOL} * {scale_ref}")
+        t_kern = device_time_ms(torch, kern, sets)
+        t_plain = device_time_ms(torch, plain, sets)
+        t_lib = device_time_ms(torch, lib, sets)
+        t_bound, bound_by = bound_ms(m, n, k, gs)
+        row = {"phase": "kernels", "shapes_from": source, "kernel": name,
+               "M": m, "N": n, "K": k, "gs": gs, "max_abs_err": err,
+               "max_abs_plain": scale_ref, "kernel_ms": t_kern,
+               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
+               "bound_by": bound_by, "bound_share": t_bound / t_kern}
+        log(row)
+        checked[case] = row
+        del sets
+    torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one main-path run with torch.profiler")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if not (PKG / "csrc").is_dir():
+        fail(f"the port's package is not beside this script ({PKG})")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    log({"phase": "env", "python": sys.version.split()[0],
+         "torch": torch.__version__, "cuda": torch.version.cuda,
+         "device": torch.cuda.get_device_name(0)})
+    phase_build()
+    checked: dict = {}
+    phase_kernels(torch, planned_cases(), checked, "plan")
+    launches, shapes = phase_main_paths(torch)
+    # every shape the main path ran is held against its plain version: a
+    # shape the plan missed is checked now
+    missing = sorted({(name, *shape) for name, run in shapes.items()
+                      for shape in run} - checked.keys())
+    log({"phase": "coverage",
+         "main_path_shapes": {name: len(run) for name, run in shapes.items()},
+         "checked_before_main_path": len(checked),
+         "missed_by_plan": [list(c) for c in missing]})
+    phase_kernels(torch, missing, checked, "main_path")
+    if args.profile:
+        phase_profile(torch)
+
+    replaces = {
+        "grouped_qmv": "src/qwen3_tts_tpu/ops/grouped_qmv.py:160",
+        "dequant_matmul": "src/qwen3_tts_tpu/ops/pallas_matmul.py:39",
+    }
+    kernels = []
+    for name in ("grouped_qmv", "dequant_matmul"):
+        r = checked[(name, *REPRESENTATIVE, GS)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/qwen3_tts_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": f"M={r['M']},N={r['N']},K={r['K']},gs={r['gs']}",
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+TEXT = ("The quick brown fox jumps over the lazy dog. "
+        "A short sentence to synthesize on the card.")
+
+
+def phase_reference(torch) -> None:
+    """A tiny model (numpy-seeded weights) on the card, whose int8 linears
+    run on the kernels, against the same weights on the CPU, whose linears
+    run on the plain versions: prefill logits within tolerance under both
+    int8 layouts; the greedy codes' agreement is printed."""
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.engine.weights import tree_to
+    from qwen3_tts_tpu_torch.runtime.generate import Generator
+    from qwen3_tts_tpu_torch.runtime.prompts import build_prompt
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    cfg = configs.tiny(quant=True)
+    host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+    trees = (host.params, host.cp_params, host.codec_params)
+    prompt = build_prompt(host.tokenizer, cfg.mode, "Hello there.",
+                          voice="ryan", speakers=cfg.speakers)
+    greedy = SamplingConfig(greedy=True)
+    for layout in ("grouped", "rowmajor"):
+        os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
+        gens = {}
+        for dev in ("cpu", "cuda"):
+            p, cp, codec = (tree_to(t, dev) for t in trees)
+            gens[dev] = Generator(cfg=cfg, params=p, cp_params=cp,
+                                  codec_params=codec, sampling=greedy)
+        logits = {}
+        for dev, gen in gens.items():
+            emb, pad = gen._assemble_cb0(prompt)
+            ck, cv = gen._alloc_cache()
+            _, lg, _, _ = gen._prefill_fn()(gen.params, emb, pad, ck, cv)
+            logits[dev] = lg.float().cpu()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        ref = logits["cpu"].abs().max().item()
+        if not math.isfinite(err) or err > 5e-2 * ref:
+            fail(f"tiny prefill logits, {layout}: card vs CPU max err {err} "
+                 f"> 5e-2 * {ref}")
+        codes = {dev: gen.synthesize(prompt, max_frames=16,
+                                     collect_codes=True).codes
+                 for dev, gen in gens.items()}
+        same = codes["cuda"].shape == codes["cpu"].shape
+        lead = 0
+        if same:
+            diff = (codes["cuda"] != codes["cpu"]).any(axis=0)
+            lead = int(diff.argmax()) if diff.any() else diff.size
+        log({"phase": "reference", "layout": layout,
+             "prefill_logits_max_err": err, "prefill_logits_max": ref,
+             "greedy_frames_equal_before_first_difference": lead,
+             "frames": int(codes["cpu"].shape[1])})
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def phase_main_path(torch, layout: str, kernel: str) -> tuple[int, dict]:
+    """load_model("synthetic:flagship") -> generate_audio at full width
+    under one int8 layout; returns the launches of ``kernel`` in the
+    measured run and the (M, N, K, gs) shapes each kernel ran there."""
+    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_model("synthetic:flagship", device="cuda", seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as out:
+        # first call: library handles, allocator, first launches
+        warm = generate_audio(model=model, text=TEXT, voice="ryan",
+                              output_path=out, max_frames=16, seed=1)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        m = generate_audio(model=model, text=TEXT, voice="ryan",
+                           output_path=out, max_frames=MAIN_FRAMES, seed=0)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        path = os.path.join(out, "audio_000.wav")
+        if not os.path.exists(path):
+            fail(f"{layout}: {path} was not written")
+        with wave.open(path, "rb") as w:
+            fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+            n = w.getnframes()
+            import numpy as np
+
+            pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    hop = model.cfg.codec.hop
+    if fmt != (1, 2, 24000):
+        fail(f"{layout}: wav format {fmt}, expected mono 16-bit 24 kHz")
+    if m["frames"] < 1 or n != m["frames"] * hop:
+        fail(f"{layout}: {n} samples for {m['frames']} frames (hop {hop})")
+    if not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
+        fail(f"{layout}: the waveform is silent or not finite")
+    if counts[kernel] == 0:
+        fail(f"{layout}: kernel {kernel} never launched on the main path")
+    log({"phase": "main_path", "layout": layout, "model": "synthetic:flagship",
+         "frames": m["frames"], "audio_s": m["audio_s"], "wall_s": m["wall_s"],
+         "rtf": m["rtf"], "ttfa_s": m["ttfa_s"], "load_s": load_s,
+         "warmup_wall_s": warm["wall_s"], "samples": n,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": counts,
+         "shapes": {name: sorted(run) for name, run in shapes.items()}})
+    del model
+    torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    return counts[kernel], shapes
+
+
+def phase_profile(torch) -> None:
+    """Where the main path's time goes (grouped layout, 64 frames): one
+    unprofiled run, then one under torch.profiler; the card's busy share is
+    the profiled kernels' device time over the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    model = load_model("synthetic:flagship", device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as out:
+        kw = dict(model=model, text=TEXT, voice="ryan", output_path=out)
+        generate_audio(max_frames=16, seed=1, **kw)
+        torch.cuda.synchronize()
+        plain = generate_audio(max_frames=MAIN_FRAMES, seed=0, **kw)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = generate_audio(max_frames=MAIN_FRAMES, seed=0, **kw)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    launches = sum(e.count for e in kernels)
+    log({"phase": "profile", "layout": "grouped", "frames": plain["frames"],
+         "wall_s": plain["wall_s"], "wall_s_traced": traced["wall_s"],
+         "device_kernel_s": device_s if kernels else "not measured",
+         "device_busy_share": device_s / plain["wall_s"] if kernels
+         else "not measured",
+         "kernel_launches": launches,
+         "top_kernels": [{"name": e.key[:80], "count": e.count,
+                          "device_ms": e.self_device_time_total / 1e3}
+                         for e in top[:12]]})
+    del model
+    torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def phase_main_paths(torch) -> tuple[dict, dict]:
+    """The reference phase, then the main path under each layout; returns
+    each layout's kernel's launches on its main path, and the shapes each
+    kernel ran on either."""
+    phase_reference(torch)
+    runs = {
+        "grouped_qmv": phase_main_path(torch, "grouped", "grouped_qmv"),
+        "dequant_matmul": phase_main_path(torch, "rowmajor", "dequant_matmul"),
+    }
+    shapes = {name: set() for name in runs}
+    for _, run in runs.values():
+        for name, ran in run.items():
+            shapes[name] |= ran
+    return {name: r[0] for name, r in runs.items()}, shapes
+
+
+if __name__ == "__main__":
+    main()

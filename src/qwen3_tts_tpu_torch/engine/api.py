@@ -1,0 +1,297 @@
+"""Public engine API: ``load_model`` and ``generate_audio``.
+
+The same call shapes as the JAX package (and the mlx_audio functions its
+reference app consumes):
+
+- ``load_model(model_path, device=None) -> model``
+- ``generate_audio(model=, text=, voice=, instruct=, speed=, ref_audio=,
+  ref_text=, output_path=, ...)`` writing ``audio_000.wav`` into
+  ``output_path`` and returning metrics (rtf, ttfa_s, frames, ...).
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without CUDA, the default raises rather than falling
+back. This slice covers synthetic models (``synthetic:tiny|flagship``, the
+custom and design modes) on the cb0 protocol with the rvq codec; what waits
+for later slices raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import configs
+from .configs import ModelConfig, torch_dtype
+from .tokenizer import load_tokenizer
+
+_SYNTH_RE = re.compile(
+    r"^synthetic:(tiny|flagship|tiny-code2wav|flagship-code2wav)"
+    r"(?::(custom|design|base))?$"
+)
+_CLONING = "cloning waits for ROADMAP queue A, item 12"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; asking for CUDA without it raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def compute_format() -> str:
+    """Runtime weight format: ``int8`` (u8 codes + f32 scale/bias resident,
+    the int8 kernels carry every linear) or ``bf16`` (weights dequantized
+    once at load). Override with QWEN3_TTS_COMPUTE=int8|bf16.
+
+    ``auto`` means int8 on every device: the JAX package defaults to bf16
+    on a TPU only because dequantizing there measured slower than bf16
+    weights (TPU v5e, PERF.md at commit dae56a7, "int8-resident weights in
+    the feedback loop"), a TPU measurement that says nothing about a GPU,
+    where the weight bytes bound decode and int8 halves them."""
+    mode = os.environ.get("QWEN3_TTS_COMPUTE", "auto")
+    if mode in ("int8", "bf16"):
+        return mode
+    if mode not in ("", "auto"):
+        raise ValueError(
+            f"QWEN3_TTS_COMPUTE={mode!r}: expected 'int8' or 'bf16' "
+            "(lowercase) — refusing to silently fall back to auto-detection"
+        )
+    return "int8"
+
+
+def apply_compute_format(model: "Qwen3TTSModel") -> "Qwen3TTSModel":
+    """Convert a loaded model's linears to the runtime compute format."""
+    if model.cfg.quant.enabled and compute_format() == "bf16":
+        from ..ops.quant import dequantize_tree
+
+        dtype = torch_dtype(model.cfg)
+        model.params = dequantize_tree(model.params, dtype)
+        model.cp_params = dequantize_tree(model.cp_params, dtype)
+        model._generator = None
+    return model
+
+
+@dataclass
+class Qwen3TTSModel:
+    """A loaded model: config, parameter trees on ``device``, tokenizer and
+    the generator (decode-layout parameters, built on first use)."""
+
+    cfg: ModelConfig
+    params: Any                       # talker
+    cp_params: Any                    # code predictor
+    codec_params: Any
+    tokenizer: Any
+    device: torch.device
+    name: str = "qwen3-tts"
+    sampling: Any = None              # None = SamplingConfig() defaults
+    _generator: Any = field(default=None, repr=False)
+
+    @property
+    def generator(self):
+        from ..runtime.generate import Generator
+        from ..runtime.sampling import SamplingConfig
+
+        if self._generator is None:
+            self._generator = Generator(
+                cfg=self.cfg, params=self.params, cp_params=self.cp_params,
+                codec_params=self.codec_params,
+                sampling=self.sampling or SamplingConfig(),
+            )
+        return self._generator
+
+    @classmethod
+    def synthetic(cls, cfg: ModelConfig, seed: int = 0,
+                  device=None) -> "Qwen3TTSModel":
+        """Random-initialised model with the production tree layout. On the
+        CPU the values are drawn with numpy in the JAX package's order; on
+        CUDA they are made on the device (models/init.py)."""
+        from ..models.code_predictor import init_code_predictor
+        from ..models.codec import init_codec
+        from ..models.talker import init_talker
+
+        dev = resolve_device(device)
+        on_card = dev if dev.type == "cuda" else None
+        return apply_compute_format(cls(
+            cfg=cfg,
+            params=init_talker(cfg, seed, device=on_card),
+            cp_params=init_code_predictor(cfg, seed + 1, device=on_card),
+            codec_params=init_codec(cfg, seed + 2, device=on_card),
+            tokenizer=load_tokenizer(None, cfg.talker.vocab_size),
+            device=dev,
+            name=f"synthetic-{cfg.mode}",
+        ))
+
+
+def load_model(model_path: str, device=None, *, seed: int = 0) -> Qwen3TTSModel:
+    """Build a synthetic model from ``synthetic:tiny|flagship[:custom|design]``
+    on ``device`` (default: the CUDA device)."""
+    dev = resolve_device(device)
+    m = _SYNTH_RE.match(model_path or "")
+    if not m:
+        raise NotImplementedError(
+            f"{model_path!r}: checkpoint directories wait for checkpoint "
+            "import (ROADMAP queue A, item 10)"
+        )
+    size, mode = m.group(1), m.group(2) or "custom"
+    if size.endswith("code2wav"):
+        raise NotImplementedError(
+            "the code2wav codec waits for ROADMAP queue A, item 8")
+    if mode == "base":
+        raise NotImplementedError(f"the base mode: {_CLONING}")
+    cfg = configs.tiny(mode, quant=True) if size == "tiny" else configs.flagship(mode)
+    return Qwen3TTSModel.synthetic(cfg, seed=seed, device=dev)
+
+
+# --------------------------------------------------------------------------
+# generate_audio
+# --------------------------------------------------------------------------
+
+# latin enders need trailing whitespace (don't split "3.14"); CJK full-width
+# enders split unconditionally
+_SENTENCE_SPLIT = re.compile(r"(?<=[.!?;])\s+|(?<=[。！？；])\s*")
+_MAX_SEGMENT_CHARS = 600
+_SEGMENT_GAP_S = 0.15
+
+
+def _split_segments(text: str) -> list[str]:
+    """Split on sentence boundaries, packing sentences into <= 600-char
+    segments."""
+    sentences = [s for s in _SENTENCE_SPLIT.split(text.strip()) if s]
+    segments: list[str] = []
+    cur = ""
+    for s in sentences:
+        while len(s) > _MAX_SEGMENT_CHARS:  # pathological unbroken run
+            if cur:
+                segments.append(cur)
+                cur = ""
+            segments.append(s[:_MAX_SEGMENT_CHARS])
+            s = s[_MAX_SEGMENT_CHARS:]
+        if not cur:
+            cur = s
+        elif len(cur) + 1 + len(s) <= _MAX_SEGMENT_CHARS:
+            cur = f"{cur} {s}"
+        else:
+            segments.append(cur)
+            cur = s
+    if cur:
+        segments.append(cur)
+    return segments or [""]
+
+
+def _estimate_frames(text: str, frame_rate: float) -> int:
+    """Frame budget heuristic: ~15 chars/sec speech, 60% headroom."""
+    est_seconds = max(1.0, len(text) / 15.0)
+    return int(est_seconds * frame_rate * 1.6) + 24
+
+
+def prepare_segments(
+    model: Qwen3TTSModel,
+    text: str,
+    *,
+    voice: str | None = None,
+    instruct: str | None = None,
+    speed: float = 1.0,
+    ref_audio: str | None = None,
+    ref_text: str | None = None,
+    max_frames: int | None = None,
+) -> tuple[list, list[int]]:
+    """Split ``text`` into segments and build one (prompt, frame budget)
+    pair per segment."""
+    from ..runtime.prompts import build_prompt
+
+    if ref_audio is not None:
+        raise NotImplementedError(f"ref_audio: {_CLONING}")
+    cfg = model.cfg
+    segments = _split_segments(text)
+    prompts = [
+        build_prompt(
+            model.tokenizer, cfg.mode, segment, voice=voice,
+            speakers=cfg.speakers,
+            speaker_tokens=(dict(cfg.talker.speaker_tokens)
+                            if cfg.talker.speaker_tokens else None),
+            instruct=instruct, speed=speed, ref_text=ref_text,
+        )
+        for segment in segments
+    ]
+    budgets = [
+        max_frames if max_frames is not None
+        else _estimate_frames(segment, cfg.codec.frame_rate)
+        for segment in segments
+    ]
+    return prompts, budgets
+
+
+def generate_audio(
+    *,
+    model: Qwen3TTSModel,
+    text: str,
+    voice: str | None = None,
+    instruct: str | None = None,
+    speed: float = 1.0,
+    ref_audio: str | None = None,
+    ref_text: str | None = None,
+    output_path: str,
+    max_frames: int | None = None,
+    seed: int = 0,
+    on_chunk: Callable[[np.ndarray], None] | None = None,
+    file_name: str = "audio_000.wav",
+) -> dict:
+    """Synthesise ``text`` and write ``output_path/audio_000.wav`` (mono
+    16-bit PCM, 24 kHz). Returns {frames, audio_s, wall_s, ttfa_s, rtf,
+    segments, sample_rate}.
+
+    Multi-segment text runs its segments one after another (the JAX
+    package's QWEN3_TTS_LONGFORM=serial behaviour) until the serving engine
+    is ported."""
+    cfg = model.cfg
+    sr = cfg.codec.sample_rate
+    if abs(speed - 1.0) >= 1e-3 and not cfg.native_speed:
+        raise NotImplementedError(
+            "speed != 1 needs the host-side time stretch (audio/stretch.py), "
+            "which waits for ROADMAP queue A, item 13"
+        )
+    prompts, budgets = prepare_segments(
+        model, text, voice=voice, instruct=instruct, speed=speed,
+        ref_audio=ref_audio, ref_text=ref_text, max_frames=max_frames,
+    )
+    pieces: list[np.ndarray] = []
+    total_frames = 0
+    ttfa = None
+    wall = 0.0
+    for seg_idx, (prompt, budget) in enumerate(zip(prompts, budgets)):
+        result = model.generator.synthesize(
+            prompt, max_frames=budget, seed=seed + seg_idx, on_chunk=on_chunk,
+        )
+        pieces.append(result.wav)
+        total_frames += result.frames
+        wall += result.wall_s
+        if ttfa is None:
+            ttfa = result.ttfa_s
+
+    gap = np.zeros(int(_SEGMENT_GAP_S * sr), dtype=pieces[0].dtype)
+    out = pieces[0] if len(pieces) == 1 else np.concatenate(
+        [p for pair in zip(pieces, [gap] * len(pieces)) for p in pair][:-1]
+    )
+
+    from ..audio import write_wav
+
+    os.makedirs(output_path, exist_ok=True)
+    write_wav(os.path.join(output_path, file_name), out, sr)
+    audio_s = len(out) / sr
+    return {
+        "frames": total_frames,
+        "audio_s": audio_s,
+        "wall_s": wall,
+        "ttfa_s": ttfa or 0.0,
+        "rtf": (audio_s / wall) if wall > 0 else 0.0,
+        "segments": len(prompts),
+        "sample_rate": sr,
+    }

@@ -1,0 +1,114 @@
+"""The talker: a Qwen3-style autoregressive transformer emitting one
+codebook-0 codec token per 12 Hz frame.
+
+Layers are stacked along a leading ``L`` axis in the parameter tree (the
+JAX package's layout) and driven by a Python loop; callers on the hot path
+pass ``blocks`` pre-split into a list of per-layer dicts
+(``layers.unstack_layers``). Multi-token prediction heads
+(``frames_per_step > 1``) wait for the published-protocol slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..engine.configs import ModelConfig, TalkerConfig, torch_dtype
+from ..ops.linear import linear
+from .init import make_init, stack_trees
+from .layers import rmsnorm, rope_slice, transformer_block, unstack_layers
+
+Params = dict[str, Any]
+
+
+def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Random-init talker parameters with the production tree layout.
+
+    ``device=None``: numpy draws in the JAX package's order on the host
+    (equal values at float32); a device: fast synthetic values made there
+    (models/init.py)."""
+    t = cfg.talker
+    init = make_init(seed, torch_dtype(cfg), device)
+    qz = dict(quantize=cfg.quant.enabled, group_size=cfg.quant.group_size,
+              bits=cfg.quant.bits)
+
+    def block() -> Params:
+        return {
+            "attn": {
+                "q": init.linear(t.q_dim, t.hidden, **qz),
+                "k": init.linear(t.kv_dim, t.hidden, **qz),
+                "v": init.linear(t.kv_dim, t.hidden, **qz),
+                "o": init.linear(t.hidden, t.q_dim, **qz),
+                "q_norm": init.ones(t.head_dim),
+                "k_norm": init.ones(t.head_dim),
+            },
+            "mlp": {
+                "gate": init.linear(t.ffn, t.hidden, **qz),
+                "up": init.linear(t.ffn, t.hidden, **qz),
+                "down": init.linear(t.hidden, t.ffn, **qz),
+            },
+            "ln1": init.ones(t.hidden),
+            "ln2": init.ones(t.hidden),
+        }
+
+    if t.frames_per_step > 1:
+        raise NotImplementedError(
+            "MTP heads (frames_per_step > 1) wait for the published-protocol "
+            "slice (ROADMAP queue A, item 9)"
+        )
+    return {
+        "text_emb": init.normal((t.vocab_size, t.hidden), 0.02),
+        "codec_emb": init.normal((t.codec_vocab, t.hidden), 0.02),
+        "spk_emb": init.normal((t.n_speakers, t.hidden), 0.02),
+        "blocks": stack_trees([block() for _ in range(t.n_layers)]),
+        "ln_f": init.ones(t.hidden),
+        "head": init.linear(t.codec_vocab, t.hidden, **qz),
+    }
+
+
+def talker_forward(
+    params: Params,
+    t: TalkerConfig,
+    x_emb: torch.Tensor,           # [B, T, D] input embeddings
+    cache_k: torch.Tensor,         # [L, B, S, H_kv, hd], written in place
+    cache_v: torch.Tensor,
+    pos: int,                      # write offset into the cache
+    cos_table: torch.Tensor,       # [S_rope, hd/2] full-length RoPE tables
+    sin_table: torch.Tensor,
+    pad_len: int = 0,
+    head_last_only: bool = False,
+):
+    """Run all layers; returns (hidden [B,T,D], logits f32, cache_k,
+    cache_v). Prefill (T > 1) and decode (T == 1). ``head_last_only``
+    scores only the last position (prefill)."""
+    T = x_emb.shape[1]
+    cos, sin = rope_slice(cos_table, sin_table, pos, T)
+    x = x_emb
+    for i, bp in enumerate(unstack_layers(params["blocks"])):
+        x = transformer_block(
+            bp, x, cos=cos, sin=sin, cache_k=cache_k[i], cache_v=cache_v[i],
+            pos=pos, n_heads=t.n_heads, n_kv_heads=t.n_kv_heads,
+            head_dim=t.head_dim, rms_eps=t.rms_eps, qk_norm=True,
+            pad_len=pad_len,
+        )
+    hidden = rmsnorm(x, params["ln_f"], t.rms_eps)
+    head_in = hidden[:, -1:, :] if head_last_only else hidden
+    logits = linear(head_in, params["head"]).float()
+    return hidden, logits, cache_k, cache_v
+
+
+def embed_codec_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Codebook-0 token ids -> talker input embeddings."""
+    return params["codec_emb"][tokens]
+
+
+def merge_step_tokens(params: Params, t: TalkerConfig,
+                      tokens: torch.Tensor) -> torch.Tensor:
+    """One step's token ids [B, frames_per_step] -> the talker's next input
+    embedding [B, D]; at frames_per_step == 1 the plain codec embedding."""
+    if t.frames_per_step != 1:
+        raise NotImplementedError(
+            "MTP merge (frames_per_step > 1) waits for ROADMAP queue A, item 9"
+        )
+    return params["codec_emb"][tokens[:, 0]]

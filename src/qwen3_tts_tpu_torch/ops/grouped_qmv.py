@@ -1,0 +1,188 @@
+"""Grouped-layout int8 weight-only matmul: layout, plain version, kernel A.
+
+Weights are relaid ONCE at load from the row-major quantized linear
+``{"q" [N, K], "scale"/"bias" [N, G]}`` into
+
+    qg [G, gs, N]  uint8    (w[n, g*gs+j] codes, transposed per group)
+    sg [G, N]      float32  scale per (group, out-col)
+    bg [G, N]      float32  affine bias per (group, out-col)
+
+and the matmul applies the affine step to f32 per-group PARTIAL SUMS
+instead of to the weight:
+
+    out[m, n] = sum_g sg[g, n] * (x[m, g*gs:]) . (qg[g, :, n])
+              + sum_g bg[g, n] * xsum[m, g]
+
+This keeps s/b in f32 (no rounding of the weight to the activation type),
+so it is close to, but not bit-identical with, the row-major path
+(``dequant_matmul.quantized_matmul_ref``).
+
+``quantized_matmul_grouped`` dispatches on the tensor's device: a CPU tensor
+takes the plain version ``quantized_matmul_grouped_ref``; a CUDA tensor
+launches kernel A (``csrc/grouped_qmv.cu``) or raises. Rows above
+``MAX_M`` are compute-heavy (prefill): there the weight is dequantized once
+and multiplied densely, on either device, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .cuda_kernels import GROUPED_QMV
+from .quant import is_quantized
+
+MAX_M = 64  # above this the op is compute-heavy: dequantize once, dense matmul
+
+
+def grouped_layout(device) -> bool:
+    """Whether quantized linears are relaid into the grouped layout at
+    engine construction. QWEN3_TTS_INT8_LAYOUT = auto|grouped|rowmajor;
+    auto = grouped on CUDA (kernel A carries decode there), row-major on
+    the CPU, as the JAX package keeps row-major off the TPU."""
+    mode = os.environ.get("QWEN3_TTS_INT8_LAYOUT", "auto")
+    if mode in ("grouped", "rowmajor"):
+        return mode == "grouped"
+    if mode != "auto":
+        raise ValueError(
+            f"QWEN3_TTS_INT8_LAYOUT={mode!r}: expected auto|grouped|rowmajor"
+        )
+    return torch.device(device).type == "cuda"
+
+
+def is_grouped(p) -> bool:
+    """True for a grouped-layout quantized linear param dict."""
+    return isinstance(p, dict) and "qg" in p and "sg" in p and "bg" in p
+
+
+def pack_grouped(p: dict) -> dict:
+    """Row-major quantized linear {"q" [*, N, K], "scale"/"bias" [*, N, G]}
+    -> grouped {"qg" [*, G, gs, N], "sg"/"bg" [*, G, N]}, contiguous.
+    Leading (stacked layer) axes pass through; other keys (additive "b",
+    LoRA adapters) are kept. Works on tensors or numpy arrays."""
+    q, scale, bias = p["q"], p["scale"], p["bias"]
+    *lead, n, k = q.shape
+    g = scale.shape[-1]
+    gs = k // g
+    nd = len(lead)
+    perm_q = tuple(range(nd)) + (nd + 1, nd + 2, nd)
+    perm_s = tuple(range(nd)) + (nd + 1, nd)
+    q4 = q.reshape(*lead, n, g, gs)
+    if isinstance(q, torch.Tensor):
+        out = {
+            "qg": q4.permute(perm_q).contiguous(),
+            "sg": scale.permute(perm_s).float().contiguous(),
+            "bg": bias.permute(perm_s).float().contiguous(),
+        }
+    else:
+        out = {
+            "qg": np.ascontiguousarray(np.transpose(q4, perm_q)),
+            "sg": np.ascontiguousarray(np.transpose(scale, perm_s), np.float32),
+            "bg": np.ascontiguousarray(np.transpose(bias, perm_s), np.float32),
+        }
+    out.update({key: v for key, v in p.items()
+                if key not in ("q", "scale", "bias")})
+    return out
+
+
+def pack_grouped_tree(params):
+    """Convert every row-major quantized linear in a tree to the grouped
+    layout (identity on everything else, leaves shared)."""
+    def convert(node):
+        if isinstance(node, dict):
+            if is_quantized(node):
+                return pack_grouped(node)
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(v) for v in node)
+        return node
+
+    return convert(params)
+
+
+def _dense_route(x2, qg, sg, bg):
+    """M > MAX_M: reconstruct the dense weight [K, N] once (rounded to the
+    activation type) and run one full-rate matmul with f32 accumulation."""
+    g, gs, n = qg.shape
+    w = (qg.float() * sg[:, None, :] + bg[:, None, :]).reshape(g * gs, n)
+    w = w.to(x2.dtype)
+    if x2.is_cuda or x2.dtype == torch.float32:
+        return torch.matmul(x2, w)
+    return torch.matmul(x2.float(), w.float()).to(x2.dtype)
+
+
+def quantized_matmul_grouped_ref(x, qg, sg, bg):
+    """Plain version of kernel A (the JAX quantized_matmul_grouped_xla's
+    numerics): per-group partial products with f32 accumulation, the f32
+    affine step on the partials, output cast to x.dtype; M > MAX_M takes
+    the dense route."""
+    g, gs, n = qg.shape
+    k = g * gs
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    if m > MAX_M:
+        return _dense_route(x2, qg, sg, bg).reshape(*lead, n).to(x.dtype)
+    x3 = x2.reshape(m, g, gs)
+    xsum = x3.float().sum(-1)                               # [M, G]
+    # u8 and the activation are exact in f32: the batched product is the
+    # x.dtype product with f32 accumulation
+    p = torch.bmm(x3.transpose(0, 1).float(), qg.float())   # [G, M, N]
+    out = (p * sg[:, None, :]).sum(0) + xsum @ bg
+    return out.reshape(*lead, n).to(x.dtype)
+
+
+def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
+    """Kernel A on the card: x2 [M, K] bf16 x grouped weight -> [M, N] bf16."""
+    g, gs, n = qg.shape
+    k = g * gs
+    if x2.dtype != torch.bfloat16:
+        raise TypeError(f"grouped_qmv: x must be bfloat16, got {x2.dtype}")
+    if qg.dtype != torch.uint8 or sg.dtype != torch.float32 \
+            or bg.dtype != torch.float32:
+        raise TypeError(
+            f"grouped_qmv: expected qg uint8, sg/bg float32; got "
+            f"{qg.dtype}, {sg.dtype}, {bg.dtype}"
+        )
+    if x2.dim() != 2 or x2.shape[1] != k or sg.shape != (g, n) \
+            or bg.shape != (g, n):
+        raise ValueError(
+            f"grouped_qmv: shapes x {tuple(x2.shape)}, qg {tuple(qg.shape)}, "
+            f"sg {tuple(sg.shape)}, bg {tuple(bg.shape)} do not match"
+        )
+    if not 1 <= gs <= 2048:
+        raise ValueError(f"grouped_qmv: group size {gs} outside 1..2048")
+    tensors = (x2, qg, sg, bg)
+    if any(not t.is_cuda or t.device != x2.device for t in tensors):
+        raise ValueError("grouped_qmv: all tensors must be on one CUDA device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("grouped_qmv: tensors must be contiguous")
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    if m == 0:
+        return out
+    with torch.cuda.device(x2.device):
+        GROUPED_QMV.launch(
+            x2.data_ptr(), qg.data_ptr(), sg.data_ptr(), bg.data_ptr(),
+            out.data_ptr(), m, k, n, gs,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    return out
+
+
+def quantized_matmul_grouped(x, qg, sg, bg):
+    """x [..., K] x grouped-quantized W -> [..., N] (decode entry point).
+    CPU tensors take the plain version; CUDA tensors launch kernel A, or
+    take the dense route above MAX_M rows."""
+    if not x.is_cuda:
+        return quantized_matmul_grouped_ref(x, qg, sg, bg)
+    g, gs, n = qg.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, g * gs).contiguous()
+    if x2.shape[0] > MAX_M:
+        out = _dense_route(x2, qg, sg, bg)
+    else:
+        out = grouped_qmv_cuda(x2, qg, sg, bg)
+    return out.reshape(*lead, n)

@@ -1,0 +1,35 @@
+"""``linear``: the single matmul entry point of the model layers.
+
+Weights follow the ``[out, in]`` convention; activations are ``[..., in]``.
+The branch is picked by the parameter dict's layout (dense, row-major int8,
+grouped int8), and the device by the tensor: int8 layouts launch their CUDA
+kernel for a CUDA tensor and take their plain version for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .dequant_matmul import dense_matmul, quantized_matmul
+from .grouped_qmv import is_grouped, quantized_matmul_grouped
+from .quant import is_quantized
+
+
+def linear(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Apply a (possibly quantized) linear layer parameter dict to x.
+
+    LoRA adapters (``lora_a`` [r, in], ``lora_b`` [out, r], ``lora_scale``)
+    add ``scale * (x A^T) B^T``; an additive ``b`` is added last."""
+    if is_grouped(params):
+        out = quantized_matmul_grouped(x, params["qg"], params["sg"], params["bg"])
+    elif is_quantized(params):
+        out = quantized_matmul(x, params["q"], params["scale"], params["bias"])
+    else:
+        out = dense_matmul(x, params["w"])
+    if "lora_a" in params:
+        delta = dense_matmul(dense_matmul(x, params["lora_a"]), params["lora_b"])
+        scale = torch.as_tensor(params["lora_scale"]).to(x.dtype)
+        out = out + scale * delta
+    if "b" in params:
+        out = out + params["b"].to(out.dtype)
+    return out

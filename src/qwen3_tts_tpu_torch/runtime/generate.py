@@ -1,0 +1,484 @@
+"""Synthesis pipeline, cb0 feedback protocol: prompt embedding -> prefill ->
+chunked autoregressive decode -> residual-codebook prediction -> streaming
+codec decode -> 16-bit PCM.
+
+Eager PyTorch with the JAX package's structure:
+
+- decode runs in chunks; a chunk is ``chunk`` talker steps (token sampled on
+  the device and fed back without a host read), one batched code-predictor
+  pass over the chunk's frames, one incremental codec decode and the PCM
+  conversion;
+- the host reads ONE packed tensor per chunk (valid-frame count, codes and
+  PCM), which is where EOS is detected and the chunk is clipped;
+- prompts are LEFT-padded to length buckets (RoPE is relative and padded
+  keys are masked, so left padding is exact), and decode attention reads a
+  bucketed prefix of the KV cache.
+
+The KV caches and the codec's stream state are updated in place.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterator
+
+import numpy as np
+import torch
+
+from ..engine.configs import ModelConfig, torch_dtype
+from ..models.code_predictor import predict_residuals
+from ..models.codec import (
+    MAX_FRAMES,
+    decode_codes_streaming,
+    init_codec_stream_state,
+)
+from ..models.layers import fuse_block_projections, rope_tables, unstack_layers
+from ..models.talker import merge_step_tokens, talker_forward
+from ..ops.grouped_qmv import grouped_layout, pack_grouped_tree
+from ..ops.pcm import wav_to_pcm16
+from .prompts import PromptSpec
+from .sampling import SamplingConfig, sample_token
+
+PROMPT_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+# decode attention reads only a bucketed prefix of the KV cache
+ATTN_BUCKETS = (512, 1024, 2048, 4096)
+
+
+def bucket_len(n: int) -> int:
+    for b in PROMPT_BUCKETS:
+        if n <= b:
+            return b
+    return PROMPT_BUCKETS[-1]
+
+
+def attn_bucket(needed: int, s_max: int) -> int:
+    for b in ATTN_BUCKETS:
+        if needed <= b <= s_max:
+            return b
+    return s_max
+
+
+def _has_lora(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return "lora_a" in tree or any(_has_lora(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_lora(v) for v in tree)
+    return False
+
+
+def fuse_decode_params(cp_params: Any, codec_params: Any) -> tuple[Any, Any]:
+    """Fuse q/k/v -> qkv and gate/up -> gate_up in the code predictor's and
+    the codec's latent-transformer blocks (fewer, larger products in their
+    many small sequential steps; identical numerics). The talker keeps the
+    split layout, as in the JAX package. Skipped when unmerged LoRA
+    adapters are present; idempotent."""
+    def fusable(blocks) -> bool:
+        return (isinstance(blocks, dict) and "qkv" not in blocks["attn"]
+                and not _has_lora(blocks))
+
+    if fusable(cp_params.get("blocks")):
+        cp_params = {**cp_params,
+                     "blocks": fuse_block_projections(cp_params["blocks"])}
+    dec = codec_params.get("dec", {})
+    if fusable(dec.get("tf_blocks")):
+        codec_params = {**codec_params, "dec": {
+            **dec, "tf_blocks": fuse_block_projections(dec["tf_blocks"])}}
+    return cp_params, codec_params
+
+
+def group_quantized(*trees, device):
+    """Relayout every quantized linear into the grouped format of kernel A
+    when the QWEN3_TTS_INT8_LAYOUT policy says so for ``device`` (auto =
+    grouped on CUDA). Runs after fuse_decode_params so the fused qkv /
+    gate_up projections are grouped too; identity on dense trees."""
+    if not grouped_layout(device):
+        return trees if len(trees) > 1 else trees[0]
+    out = tuple(pack_grouped_tree(t) for t in trees)
+    return out if len(out) > 1 else out[0]
+
+
+def default_chunk_schedule(t) -> tuple:
+    """The decode-chunk ladder: a small first chunk for time to first
+    audio, then the steady 32-frame chunk (the last entry repeats)."""
+    if t.feedback == "residual_sum" and t.frames_per_step == 1:
+        return (4, 32)
+    return (8, 32)
+
+
+def align_chunk_schedule(schedule, fps: int) -> tuple:
+    """Round each chunk size up to a multiple of ``frames_per_step``."""
+    out = tuple(-(-int(c) // fps) * fps for c in schedule)
+    if any(c <= 0 for c in out):
+        raise ValueError(f"chunk sizes must be positive: {schedule}")
+    return out
+
+
+def chunk_plan(schedule, max_frames: int, fps: int = 1) -> Iterator[int]:
+    """The decode chunks of an utterance of ``max_frames`` frames that runs
+    to its end: the schedule (its last entry repeating), the last chunk cut
+    to what is left (rounded up to ``fps``). An utterance that reaches EOS
+    stops after a prefix of these."""
+    done = 0
+    for i in itertools.count():
+        if done >= max_frames:
+            return
+        chunk = min(schedule[min(i, len(schedule) - 1)],
+                    -(-(max_frames - done) // fps) * fps)
+        yield chunk
+        done += chunk
+
+
+def cp_samples(cfg: ModelConfig, sampling: SamplingConfig) -> bool:
+    """Whether the code predictor samples its residual codes: the config
+    asks for it AND the talker itself samples (greedy talker decode keeps
+    greedy residuals)."""
+    cp = cfg.code_predictor
+    wants = cp.top_k > 0 or cp.top_p < 1.0 or cp.temperature != 1.0
+    return wants and not (sampling.greedy or sampling.temperature <= 0.0)
+
+
+@dataclass
+class GenerationResult:
+    wav: np.ndarray                   # [n_samples] int16 PCM mono (24 kHz)
+    frames: int
+    sample_rate: int
+    ttfa_s: float                     # time to first audio chunk
+    wall_s: float
+    audio_s: float
+    codes: np.ndarray | None = None   # [Q, frames] when collect_codes=True
+
+    @property
+    def rtf(self) -> float:
+        """Real-time factor: audio seconds produced per wall second."""
+        return self.audio_s / self.wall_s if self.wall_s > 0 else 0.0
+
+
+# --------------------------------------------------------------------------
+# stages
+# --------------------------------------------------------------------------
+
+def make_prefill_fn(cfg: ModelConfig) -> Callable:
+    t = cfg.talker
+    S = cfg.max_seq_len
+
+    def prefill(params, emb, pad_len: int, cache_k, cache_v):
+        cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta, emb.device)
+        hidden, logits, ck, cv = talker_forward(
+            params, t, emb, cache_k, cache_v, 0, cos_t, sin_t,
+            pad_len=pad_len, head_last_only=True,
+        )
+        return hidden[:, -1, :], logits[:, -1, :], ck, cv
+
+    return prefill
+
+
+def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
+                         sampling: SamplingConfig,
+                         attn_len: int | None = None) -> Callable:
+    """One chunk: ``chunk`` talker steps + batched residual prediction +
+    incremental codec decode + PCM. Attention reads the first ``attn_len``
+    cache slots (the caller guarantees pos + chunk <= attn_len)."""
+    t = cfg.talker
+    S = cfg.max_seq_len
+    A = attn_len or S
+    cb_size = cfg.codec.codebook_size
+    fps = t.frames_per_step
+    if chunk % fps:
+        raise ValueError(f"chunk {chunk} is not a multiple of fps {fps}")
+    n_steps = chunk // fps
+    cp_stoch = cp_samples(cfg, sampling)
+
+    def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
+                     cstate, pos: int, pad_len: int, n_frames: int,
+                     last_token, generator):
+        """last_token [B, fps]; returns (cache_k, cache_v, cstate, pos,
+        tok, n_frames, n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
+        cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta,
+                                   last_token.device)
+        ck, cv = cache_k[:, :, :A], cache_v[:, :, :A]  # views: writes land
+        tok = last_token
+        toks, hiddens = [], []
+        for s in range(n_steps):
+            emb = merge_step_tokens(params, t, tok)[:, None, :]
+            hidden, logits, _, _ = talker_forward(
+                params, t, emb, ck, cv, pos + s, cos_t, sin_t,
+                pad_len=pad_len,
+            )
+            tok = sample_token(logits[:, -1, :], generator, sampling)[:, None]
+            toks.append(tok)
+            hiddens.append(hidden[:, -1, :])
+        tokens_bc = torch.cat(toks, dim=1)                   # [B, chunk]
+        B = tokens_bc.shape[0]
+        flat_h = torch.stack(hiddens, dim=1).reshape(B * chunk, -1)
+        # control tokens (BOS/EOS/PAD >= codebook_size) are clamped for the
+        # predictor; the host masks frames at/after EOS anyway
+        flat_cb0 = tokens_bc.reshape(-1).clamp(0, cb_size - 1)
+        residuals = predict_residuals(
+            cp_params, cfg, flat_h, flat_cb0,
+            generator=generator if cp_stoch else None,
+        )
+        codes = torch.cat(
+            [flat_cb0.reshape(B, chunk, 1),
+             residuals.reshape(B, chunk, -1)], dim=-1,
+        ).transpose(1, 2)                                    # [B, Q, chunk]
+        wav_chunk, cstate = decode_codes_streaming(
+            codec_params, cfg, codes, cstate, n_frames)
+        is_eos = (tokens_bc == t.codec_eos).int()
+        n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
+                              torch.full_like(is_eos[:, 0], chunk))
+        return (cache_k, cache_v, cstate, pos + n_steps, tok,
+                n_frames + chunk, n_valid, codes, wav_to_pcm16(wav_chunk))
+
+    return decode_chunk
+
+
+# --------------------------------------------------------------------------
+# the synthesis loop
+# --------------------------------------------------------------------------
+
+def _first_device(tree) -> torch.device:
+    if isinstance(tree, dict):
+        return _first_device(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _first_device(tree[0])
+    return tree.device
+
+
+@dataclass
+class Generator:
+    """Owns the decode-layout parameters and stage functions of one model."""
+
+    cfg: ModelConfig
+    params: Any                       # talker params
+    cp_params: Any                    # code-predictor params
+    codec_params: Any
+    sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    # adaptive chunk schedule (None = default_chunk_schedule); the last
+    # entry repeats for the rest of the utterance
+    chunk_schedule: tuple | None = None
+
+    def __post_init__(self):
+        t = self.cfg.talker
+        if t.feedback != "cb0" or t.frames_per_step != 1:
+            raise NotImplementedError(
+                "the published residual_sum protocol and MTP "
+                "(frames_per_step > 1) wait for ROADMAP queue A, item 9"
+            )
+        self.device = _first_device(self.params)
+        self.dtype = torch_dtype(self.cfg)
+        self.cp_params, self.codec_params = fuse_decode_params(
+            self.cp_params, self.codec_params)
+        self.params, self.cp_params, self.codec_params = group_quantized(
+            self.params, self.cp_params, self.codec_params, device=self.device)
+        # per-layer views for the Python layer loops (built once)
+        self.params = {**self.params,
+                       "blocks": unstack_layers(self.params["blocks"])}
+        self.cp_params = {**self.cp_params,
+                          "blocks": unstack_layers(self.cp_params["blocks"])}
+        dec = self.codec_params["dec"]
+        self.codec_params = {**self.codec_params, "dec": {
+            **dec, "tf_blocks": unstack_layers(dec["tf_blocks"])}}
+        if self.chunk_schedule is None:
+            self.chunk_schedule = default_chunk_schedule(t)
+        self.chunk_schedule = align_chunk_schedule(
+            self.chunk_schedule, t.frames_per_step)
+
+    def _prefill_fn(self):
+        return make_prefill_fn(self.cfg)
+
+    def _alloc_cache(self, batch: int = 1):
+        t = self.cfg.talker
+        shape = (t.n_layers, batch, self.cfg.max_seq_len, t.n_kv_heads,
+                 t.head_dim)
+        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def _seed_tokens(self, hidden_last, logits, generator) -> torch.Tensor:
+        """The seed step's token [B, 1] from the prefill logits: it
+        conditions the first decode step and is not rendered."""
+        return sample_token(logits, generator, self.sampling)[:, None]
+
+    # -- prompt embedding (once per utterance) ----------------------------
+
+    def _prompt_cap(self) -> int:
+        max_prompt = max(16, self.cfg.max_seq_len - 2 * max(self.chunk_schedule))
+        allowed = [b for b in PROMPT_BUCKETS if b <= max_prompt]
+        return allowed[-1] if allowed else max_prompt
+
+    def _assemble_cb0(self, prompt: PromptSpec) -> tuple[torch.Tensor, int]:
+        """The cb0-protocol prompt [speaker]? [text] [codec head]
+        [speaker token]? [acoustic cb0]? [codec BOS], left-padded to a
+        bucket. Returns (emb [1, L_bucket, D], pad_len)."""
+        t = self.cfg.talker
+        p = self.params
+        dev = self.device
+        parts = []
+        if prompt.speaker_id is not None:
+            parts.append(p["spk_emb"][prompt.speaker_id][None, :])
+        if prompt.speaker_vector is not None:
+            parts.append(torch.as_tensor(
+                np.asarray(prompt.speaker_vector, np.float32), device=dev
+            ).to(p["spk_emb"].dtype)[None, :])
+        if prompt.text_tokens.size:
+            toks_np = np.asarray(prompt.text_tokens)
+            if int(toks_np.max()) >= t.vocab_size or int(toks_np.min()) < 0:
+                # only tiny synthetic configs may alias ids (their tables are
+                # smaller than the byte tokenizer's 256 ids)
+                if t.vocab_size >= 512:
+                    raise ValueError(
+                        f"token id {int(toks_np.max())} out of range for "
+                        f"vocab_size {t.vocab_size}: tokenizer/config mismatch"
+                    )
+                toks_np = toks_np % t.vocab_size
+            parts.append(p["text_emb"][torch.as_tensor(toks_np.astype(np.int64),
+                                                       device=dev)])
+        for tok in t.codec_prompt_head:
+            parts.append(p["codec_emb"][tok][None, :])
+        if prompt.speaker_token is not None:
+            parts.append(p["codec_emb"][int(prompt.speaker_token)][None, :])
+        if prompt.acoustic_codes is not None and prompt.acoustic_codes.size:
+            cb0_np = np.asarray(prompt.acoustic_codes[0])
+            cb_size = self.cfg.codec.codebook_size
+            if int(cb0_np.max()) >= cb_size or int(cb0_np.min()) < 0:
+                if cb_size >= 512:
+                    raise ValueError(
+                        f"acoustic code {int(cb0_np.max())} out of range for "
+                        f"codebook_size {cb_size}"
+                    )
+                cb0_np = cb0_np % cb_size
+            parts.append(p["codec_emb"][torch.as_tensor(
+                cb0_np.astype(np.int64), device=dev)])
+        parts.append(p["codec_emb"][t.codec_bos][None, :])
+        emb = torch.cat(parts, dim=0)                        # [L, D]
+
+        # head conditioning rows must survive truncation
+        n_head = (prompt.speaker_id is not None) + (
+            prompt.speaker_vector is not None)
+        L = emb.shape[0]
+        Lb = min(bucket_len(L), self._prompt_cap())
+        if L > Lb:  # over-long prompt: keep head conditioning + the tail
+            emb = torch.cat([emb[:n_head], emb[L - (Lb - n_head):]], dim=0)
+            L = Lb
+        pad = Lb - L
+        padded = torch.zeros((Lb, emb.shape[1]), dtype=emb.dtype, device=dev)
+        padded[pad:] = emb
+        return padded[None], pad
+
+    # -- streaming synthesis ----------------------------------------------
+
+    def stream(
+        self,
+        prompt: PromptSpec,
+        *,
+        max_frames: int,
+        seed: int = 0,
+        collect_codes: bool = False,
+    ) -> Iterator[tuple[np.ndarray, dict]]:
+        """Yield (wav_chunk int16 PCM [n], info) as audio becomes available;
+        the last yield carries info["final"] = True and the whole utterance
+        (the concatenation of the streamed chunks). ``collect_codes`` adds
+        the codec codes [Q, frames] to the final info."""
+        cfg = self.cfg
+        t = cfg.talker
+        fps = t.frames_per_step
+        hop = cfg.codec.hop
+        Q = cfg.codec.num_codebooks
+        emb, pad = self._assemble_cb0(prompt)
+        Lb = emb.shape[1]
+        budget = min((cfg.max_seq_len - Lb) * fps,
+                     MAX_FRAMES - 2 * max(self.chunk_schedule))
+        max_frames = max(1, min(max_frames, budget))
+
+        start = time.perf_counter()
+        cache_k, cache_v = self._alloc_cache()
+        hidden_last, logits, cache_k, cache_v = self._prefill_fn()(
+            self.params, emb, pad, cache_k, cache_v)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        cstate = init_codec_stream_state(cfg, 1, dtype=self.dtype,
+                                         device=self.device)
+        tok = self._seed_tokens(hidden_last, logits, gen)    # [1, fps]
+        pos, n_frames_dev = Lb, 0
+
+        wav_pieces: list[np.ndarray] = []
+        code_pieces: list[np.ndarray] = []
+        n_frames = 0
+        ttfa = None
+        # the last chunk stops at the budget: positions past max_seq_len
+        # have no cache rows (the JAX package clamps those writes and
+        # discards the frames; here they are not computed)
+        for chunk in chunk_plan(self.chunk_schedule, max_frames, fps):
+            A = attn_bucket(pos + chunk // fps, cfg.max_seq_len)
+            (cache_k, cache_v, cstate, pos, tok, n_frames_dev, n_valid,
+             codes, wav) = make_decode_chunk_fn(cfg, chunk, self.sampling, A)(
+                self.params, self.cp_params, self.codec_params, cache_k,
+                cache_v, cstate, pos, pad, n_frames_dev, tok, gen)
+            # ONE host read per chunk: valid count, codes and PCM packed
+            packed = torch.cat([
+                n_valid[:1].to(torch.int32), codes[0].reshape(-1).to(torch.int32),
+                wav[0].to(torch.int32),
+            ]).cpu().numpy()
+            valid = int(packed[0])
+            done = valid < chunk
+            if valid >= max_frames - n_frames:
+                valid = max_frames - n_frames
+                done = True
+            if valid > 0:
+                codes_np = packed[1:1 + Q * chunk].reshape(Q, chunk)
+                wav_chunk = packed[1 + Q * chunk:1 + Q * chunk + valid * hop]
+                wav_chunk = wav_chunk.astype(np.int16)
+                if collect_codes:
+                    code_pieces.append(codes_np[:, :valid])
+                wav_pieces.append(wav_chunk)
+                n_frames += valid
+                if ttfa is None:
+                    ttfa = time.perf_counter() - start
+                yield wav_chunk, {"final": False, "frames": n_frames,
+                                  "ttfa_s": ttfa}
+            if done:
+                break
+
+        wav_full = (np.concatenate(wav_pieces) if wav_pieces
+                    else np.zeros(0, dtype=np.int16))
+        wall = time.perf_counter() - start
+        yield wav_full, {
+            "final": True,
+            "frames": n_frames,
+            "ttfa_s": ttfa if ttfa is not None else wall,
+            "wall_s": wall,
+            "codes": (np.concatenate(code_pieces, axis=1) if code_pieces
+                      else None) if collect_codes else None,
+        }
+
+    def synthesize(
+        self,
+        prompt: PromptSpec,
+        *,
+        max_frames: int,
+        seed: int = 0,
+        on_chunk: Callable[[np.ndarray], None] | None = None,
+        collect_codes: bool = False,
+    ) -> GenerationResult:
+        """Run the full pipeline; returns the whole waveform and metrics."""
+        final_wav = np.zeros(0, dtype=np.int16)
+        info: dict = {"frames": 0, "ttfa_s": 0.0, "wall_s": 0.0}
+        for wav_chunk, meta in self.stream(
+            prompt, max_frames=max_frames, seed=seed,
+            collect_codes=collect_codes,
+        ):
+            if meta["final"]:
+                final_wav = wav_chunk
+                info = meta
+            elif on_chunk is not None:
+                on_chunk(wav_chunk)
+        sr = self.cfg.codec.sample_rate
+        return GenerationResult(
+            wav=final_wav,
+            frames=info["frames"],
+            sample_rate=sr,
+            ttfa_s=info["ttfa_s"],
+            wall_s=info.get("wall_s", 0.0),
+            audio_s=len(final_wav) / sr,
+            codes=info.get("codes"),
+        )

@@ -1,0 +1,202 @@
+"""The port's main path as a whole against the JAX package: greedy float32
+synthesis on one tiny int8 tree under both int8 layouts, generate_audio's
+WAV contract, the entry points' device rules, and the isolation of the port
+(no JAX, nothing of the JAX package)."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import wave
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qwen3_tts_tpu.engine import configs as jcfgs
+from qwen3_tts_tpu.engine.api import Qwen3TTSModel as JaxModel
+from qwen3_tts_tpu.engine.api import generate_audio as jax_generate_audio
+from qwen3_tts_tpu.engine.tokenizer import ByteTokenizer
+from qwen3_tts_tpu.models.code_predictor import init_code_predictor
+from qwen3_tts_tpu.models.codec import init_codec
+from qwen3_tts_tpu.models.talker import init_talker
+from qwen3_tts_tpu.runtime.generate import Generator as JaxGenerator
+from qwen3_tts_tpu.runtime.prompts import build_prompt as jax_build_prompt
+from qwen3_tts_tpu.runtime.sampling import SamplingConfig as JaxSampling
+from qwen3_tts_tpu_torch.engine import configs as tcfgs
+from qwen3_tts_tpu_torch.engine import api as tapi
+from qwen3_tts_tpu_torch.engine.weights import params_from_numpy
+from qwen3_tts_tpu_torch.runtime.generate import Generator, chunk_plan
+from qwen3_tts_tpu_torch.runtime.prompts import build_prompt
+from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+from torch_port_helpers import tame_codec, tiny_f32
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "qwen3_tts_tpu_torch"
+TEXT = "Hello there, general."
+PCM_LSB = 2  # int16 PCM tolerance: float32 summation order in the codec
+
+
+@pytest.mark.parametrize("layout", ["grouped", "rowmajor"])
+def test_synthesize_matches_jax_generator(layout, monkeypatch):
+    """Same tree, same prompt, greedy float32: identical codec codes and
+    int16 PCM within 2 LSB, across three chunks (streaming codec state and
+    the per-chunk EOS/valid clipping included)."""
+    monkeypatch.setenv("QWEN3_TTS_INT8_LAYOUT", layout)
+    jc, tc = tiny_f32(jcfgs), tiny_f32(tcfgs)
+    trees = (init_talker(jc, 0), init_code_predictor(jc, 1),
+             tame_codec(init_codec(jc, 2)))
+    jgen = JaxGenerator(cfg=jc, params=trees[0], cp_params=trees[1],
+                        codec_params=trees[2],
+                        sampling=JaxSampling(greedy=True), chunk_schedule=(4,))
+    params, cp_params, codec_params = params_from_numpy(*trees, device="cpu")
+    tgen = Generator(cfg=tc, params=params, cp_params=cp_params,
+                     codec_params=codec_params,
+                     sampling=SamplingConfig(greedy=True), chunk_schedule=(4,))
+    kw = dict(voice="ryan", speakers=jc.speakers)
+    jprompt = jax_build_prompt(ByteTokenizer(), "custom", TEXT, **kw)
+    tprompt = build_prompt(tapi.load_tokenizer(None, 256), "custom", TEXT, **kw)
+    np.testing.assert_array_equal(tprompt.text_tokens, jprompt.text_tokens)
+
+    ref = jgen.synthesize(jprompt, max_frames=12, collect_codes=True)
+    got = tgen.synthesize(tprompt, max_frames=12, collect_codes=True)
+    assert got.frames == ref.frames > 4
+    np.testing.assert_array_equal(got.codes, ref.codes)
+    assert got.wav.dtype == np.int16 and got.wav.shape == ref.wav.shape
+    diff = np.abs(got.wav.astype(np.int32) - ref.wav.astype(np.int32))
+    assert diff.max() <= PCM_LSB
+    assert np.abs(ref.wav).max() > 1000  # a live waveform, not silence
+
+
+def test_generate_audio_writes_the_same_wav_length(temp_dir):
+    """Both packages' synthetic tiny float32 models (the port's host
+    initialisers draw the JAX package's values) through generate_audio:
+    audio_000.wav, mono 16-bit 24 kHz, of the same length."""
+    lengths = {}
+    for name, cfgmod, build, run in (
+        ("jax", jcfgs, lambda c: JaxModel.synthetic(c, seed=0),
+         jax_generate_audio),
+        ("torch", tcfgs,
+         lambda c: tapi.Qwen3TTSModel.synthetic(c, seed=0, device="cpu"),
+         tapi.generate_audio),
+    ):
+        model = build(tiny_f32(cfgmod))
+        model.sampling = (JaxSampling if name == "jax" else SamplingConfig)(
+            greedy=True)
+        out = os.path.join(temp_dir, name)
+        metrics = run(model=model, text=TEXT, voice="ryan", output_path=out,
+                      max_frames=8)
+        with wave.open(os.path.join(out, "audio_000.wav"), "rb") as w:
+            assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == \
+                (1, 2, 24000)
+            lengths[name] = w.getnframes()
+        assert lengths[name] == metrics["frames"] * 2000
+    assert lengths["torch"] == lengths["jax"] > 0
+
+
+def test_generate_audio_serial_segments_and_metrics(temp_dir):
+    model = tapi.load_model("synthetic:tiny", device="cpu")
+    text = "A long first sentence. " * 30 + "The second segment begins."
+    m = tapi.generate_audio(model=model, text=text, voice="ryan",
+                            output_path=temp_dir, max_frames=4)
+    assert m["segments"] == 2 and m["frames"] == 8
+    with wave.open(os.path.join(temp_dir, "audio_000.wav"), "rb") as w:
+        assert w.getnframes() == 8 * 2000 + int(0.15 * 24000)
+    assert m["rtf"] > 0 and m["ttfa_s"] > 0
+
+
+def test_stream_stops_at_the_cache_budget():
+    """A frame budget past the talker cache: the prompt bucket (64) plus
+    the budget fill max_seq_len (256) exactly, so the last chunk is cut to
+    fit instead of writing past the cache."""
+    model = tapi.load_model("synthetic:tiny", device="cpu")
+    model.sampling = SamplingConfig(greedy=True)
+    gen = model.generator
+    prompt = build_prompt(model.tokenizer, "custom", TEXT, voice="ryan",
+                          speakers=model.cfg.speakers)
+    assert gen._assemble_cb0(prompt)[0].shape[1] == 64
+    res = gen.synthesize(prompt, max_frames=10_000, collect_codes=True)
+    assert 0 < res.frames <= model.cfg.max_seq_len - 64
+    assert res.codes.shape == (model.cfg.codec.num_codebooks, res.frames)
+    assert len(res.wav) == res.frames * model.cfg.codec.hop
+
+
+@pytest.mark.parametrize("schedule,max_frames,fps,want", [
+    ((8, 32), 64, 1, [8, 32, 24]),
+    ((8, 32), 5, 1, [5]),
+    ((8, 32), 100, 1, [8, 32, 32, 28]),
+    ((4, 8), 7, 2, [4, 4]),
+])
+def test_chunk_plan_cuts_the_last_chunk_to_the_budget(schedule, max_frames,
+                                                      fps, want):
+    assert list(chunk_plan(schedule, max_frames, fps)) == want
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.load_model("synthetic:tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.Qwen3TTSModel.synthetic(tcfgs.tiny(quant=True))
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda m, d: tapi.load_model("synthetic:tiny:base", device="cpu"), "12"),
+    (lambda m, d: tapi.load_model("synthetic:tiny-code2wav", device="cpu"), "8"),
+    (lambda m, d: tapi.load_model(d, device="cpu"), "10"),
+    (lambda m, d: tapi.generate_audio(model=m, text="x", voice="ryan",
+                                      output_path=d, speed=1.3), "13"),
+    (lambda m, d: tapi.generate_audio(model=m, text="x", output_path=d,
+                                      ref_audio="ref.wav"), "12"),
+], ids=["base_mode", "code2wav", "checkpoint_dir", "speed", "ref_audio"])
+def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
+    model = tapi.load_model("synthetic:tiny", device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        call(model, temp_dir)
+
+
+def test_compute_format_auto_is_int8(monkeypatch):
+    monkeypatch.delenv("QWEN3_TTS_COMPUTE", raising=False)
+    assert tapi.compute_format() == "int8"
+    monkeypatch.setenv("QWEN3_TTS_COMPUTE", "bf16")
+    model = tapi.load_model("synthetic:tiny", device="cpu")
+    assert set(model.params["head"]) == {"w"}
+    monkeypatch.setenv("QWEN3_TTS_COMPUTE", "INT8")
+    with pytest.raises(ValueError):
+        tapi.compute_format()
+
+
+def _imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "qwen3_tts_tpu"), (path, name)
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    """No CUDA here: chip_smoke.py exits non-zero and prints no result, in
+    the repository and alone in an empty directory."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for script in (ROOT / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                              capture_output=True, text=True, timeout=120,
+                              env=env)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+
