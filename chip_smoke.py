@@ -8,14 +8,18 @@ NVIDIA GPU: the quickest proof that the port builds, is right, and runs.
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. build every CUDA kernel from ``src/qwen3_tts_tpu_torch/csrc`` with nvcc
-   for sm_90a (one nvcc per source, started together) into build/kernels/;
+   for sm_90a (one nvcc per source, started together) into build/kernels/,
+   printing ptxas' registers and spills; kernel B must spill nothing;
 2. hold each kernel against its plain PyTorch version on the card at every
    flagship (N, K) at the row counts the main path plans for it (M=1, the
    decode chunks, the prefill rows) plus one tiny shape, in bf16, with
-   max|kernel - plain| <= 1e-2 * max|plain|; time kernel, plain version,
-   and a library yardstick (plain dequantization plus one torch.matmul),
-   and compute the bound (bytes over 3.35 TB/s vs operations over
-   989 TFLOP/s, whichever is larger);
+   max|kernel - plain| <= 1e-2 * max|plain|; kernel B twice, its two
+   outputs bit-identical (split-K reduced in a fixed order); time kernel,
+   plain version, and a library yardstick (plain dequantization plus one
+   torch.matmul), and compute the bound (bytes over 3.35 TB/s vs
+   operations over 989 TFLOP/s, whichever is larger); then one
+   ``frame_sum`` line: each kernel's time, bound and library time summed
+   over a talker frame at M=1 (28 layers x 7 linears, plus the head);
 3. a tiny model on the card (kernels) against the same model on the CPU
    (plain versions): prefill logits within tolerance, greedy codes printed;
 4. the main path at the flagship's full width, grouped int8 layout:
@@ -42,6 +46,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +72,10 @@ FLAGSHIP_NK = (
 GS = 64
 TINY = (67, 64, 16)  # (N, K, gs)
 REPRESENTATIVE = (1, 6144, 2048)  # (M, N, K) reported in the kernels line
+# one talker frame at M=1: (N, K) -> calls (28 layers of q, k, v, o, gate,
+# up, down, then the codec head)
+TALKER_FRAME = {(2048, 2048): 56, (1024, 2048): 56, (6144, 2048): 56,
+                (2048, 6144): 28, (2051, 2048): 1}
 MAIN_FRAMES = 64  # frames of the measured main-path run
 
 
@@ -119,6 +128,12 @@ def phase_build():
                  if "registers" in ln or "spill" in ln]
         log({"phase": "build", "kernel": k.name, "library": str(
             k.library_path().relative_to(ROOT)), "ptxas": ptxas})
+        if k is cuda_kernels.DEQUANT_MATMUL:
+            spills = [ln for ln in ptxas if "spill" in ln]
+            if not spills:
+                fail(f"{k.name}: no ptxas spill lines in its build log")
+            if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in spills):
+                fail(f"{k.name}: ptxas reports spills: {spills}")
     log({"phase": "build", "build_s": round(build_s, 3)})
 
 
@@ -157,7 +172,7 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
     time kernel, plain version and library yardstick; rows go into
     ``checked`` keyed by case. ``source`` says where the shapes came from."""
     from qwen3_tts_tpu_torch.ops.dequant_matmul import (
-        dequant_matmul_cuda, dense_matmul, quantized_matmul_ref,
+        dequant_matmul_cuda, dense_matmul, plan_kernel_b, quantized_matmul_ref,
     )
     from qwen3_tts_tpu_torch.ops.grouped_qmv import (
         _dense_route, grouped_qmv_cuda, pack_grouped,
@@ -167,6 +182,7 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(len(checked))
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def lib_rowmajor(x, q, s, b):
         return dense_matmul(x, dequantize({"q": q, "scale": s, "bias": b},
@@ -203,6 +219,15 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
         if not math.isfinite(err) or err > TOL * scale_ref:
             fail(f"{name} M={m} N={n} K={k} gs={gs}: max|kernel-plain| {err} "
                  f"> {TOL} * {scale_ref}")
+        extra = {}
+        if name == "dequant_matmul":
+            again = kern(*sets[0])
+            if not torch.equal(got, again):
+                fail(f"{name} M={m} N={n} K={k} gs={gs}: two launches on the "
+                     "same inputs differ")
+            plan = plan_kernel_b(m, n, k, gs, sm_count)
+            extra = {"ring": plan.ring, "m_frags": plan.m_frags,
+                     "k_splits": plan.k_splits, "blocks": plan.blocks}
         t_kern = device_time_ms(torch, kern, sets)
         t_plain = device_time_ms(torch, plain, sets)
         t_lib = device_time_ms(torch, lib, sets)
@@ -211,11 +236,23 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
                "M": m, "N": n, "K": k, "gs": gs, "max_abs_err": err,
                "max_abs_plain": scale_ref, "kernel_ms": t_kern,
                "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
-               "bound_by": bound_by, "bound_share": t_bound / t_kern}
+               "bound_by": bound_by, "bound_share": t_bound / t_kern, **extra}
         log(row)
         checked[case] = row
         del sets
     torch.cuda.empty_cache()
+
+
+def phase_frame_sum(checked: dict) -> None:
+    """Each kernel's time, bound and library time summed over one talker
+    frame at M=1 (TALKER_FRAME), in ms."""
+    row = {"phase": "frame_sum", "M": 1, "calls": sum(TALKER_FRAME.values())}
+    for name in ("grouped_qmv", "dequant_matmul"):
+        rows = [(c, checked[(name, 1, n, k, GS)])
+                for (n, k), c in TALKER_FRAME.items()]
+        row[name] = {key: sum(c * r[key] for c, r in rows)
+                     for key in ("kernel_ms", "bound_ms", "library_ms")}
+    log(row)
 
 
 def main() -> None:
@@ -241,6 +278,7 @@ def main() -> None:
     phase_build()
     checked: dict = {}
     phase_kernels(torch, planned_cases(), checked, "plan")
+    phase_frame_sum(checked)
     launches, shapes = phase_main_paths(torch)
     # every shape the main path ran is held against its plain version: a
     # shape the plan missed is checked now

@@ -8,14 +8,16 @@ together) into ``build/kernels/`` at the repository root. Library names
 carry a hash of the source and the flags, so an edited source rebuilds and
 an unchanged one loads.
 
-Every C entry point has one signature::
+Kernel A's C entry point has the signature::
 
     int fn(const void* x, const void* w, const void* scale, const void* bias,
            void* out, int M, int K, int N, int gs, void* stream)
 
-and returns ``cudaGetLastError()`` after its launch; :class:`Kernel` raises
-when that is not 0, and counts the launches that succeeded and the
-(M, N, K, gs) shapes they ran.
+Kernel B's adds its split-K workspace, tile counters and plan (see
+``csrc/dequant_matmul.cu``). Each returns the CUDA error of its launch;
+:class:`Kernel` raises when that is not 0, and counts the launches that
+succeeded and the (M, N, K, gs) shapes they ran. The nvcc output of a build
+(ptxas' registers and spills) is kept beside its library.
 """
 
 from __future__ import annotations
@@ -57,10 +59,11 @@ def nvcc_path() -> str:
 class Kernel:
     """One CUDA source, its shared library and its launch count."""
 
-    def __init__(self, name: str, source: str, symbol: str):
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
+        self.argtypes = argtypes
         self.launches = 0
         self.shapes: set[tuple[int, int, int, int]] = set()  # (M, N, K, gs)
         self.build_log = ""
@@ -77,12 +80,13 @@ class Kernel:
         ``build/kernels/`` yet."""
         if self._fn is None:
             lib = self.library_path()
-            if not lib.exists():
+            if lib.exists():
+                log = lib.with_suffix(".log")
+                self.build_log = log.read_text() if log.exists() else ""
+            else:
                 self._build(lib)
             fn = getattr(ctypes.CDLL(str(lib)), self.symbol)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p
-            ]
+            fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -102,25 +106,39 @@ class Kernel:
                 f"nvcc failed for {self.source} (exit {proc.returncode}):\n"
                 f"{proc.stdout}"
             )
+        lib.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, lib)
 
     def launch(self, x, w, scale, bias, out, M: int, K: int, N: int, gs: int,
                stream: int) -> None:
-        """Launch on ``stream`` (a ``cudaStream_t`` as int); raises if the
-        launch was refused. Pointers are ``tensor.data_ptr()`` ints."""
-        rc = self.load()(x, w, scale, bias, out, M, K, N, gs, stream)
+        """Launch with the common signature on ``stream`` (a
+        ``cudaStream_t`` as int). Pointers are ``tensor.data_ptr()`` ints."""
+        self.call((x, w, scale, bias, out, M, K, N, gs, stream), (M, N, K, gs))
+
+    def call(self, args: tuple, shape: tuple[int, int, int, int]) -> None:
+        """Call the C entry point with ``args`` (one launch of the
+        (M, N, K, gs) ``shape``); raises if the launch was refused."""
+        rc = self.load()(*args)
         if rc != 0:
+            m, n, k, gs = shape
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {rc} "
-                f"(M={M}, K={K}, N={N}, gs={gs})"
+                f"(M={m}, K={k}, N={n}, gs={gs})"
             )
         self.launches += 1
-        self.shapes.add((M, N, K, gs))
+        self.shapes.add(shape)
 
 
-GROUPED_QMV = Kernel("grouped_qmv", "grouped_qmv.cu", "qmv_grouped_bf16")
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+GROUPED_QMV = Kernel(
+    "grouped_qmv", "grouped_qmv.cu", "qmv_grouped_bf16",
+    [_PTR] * 5 + [_INT] * 4 + [_PTR],
+)
+# x, q, scale, bias, out, workspace, counters; M, K, N, gs, m_frags,
+# k_splits, k_unit, sb_groups; stream
 DEQUANT_MATMUL = Kernel(
-    "dequant_matmul", "dequant_matmul.cu", "dequant_matmul_bf16"
+    "dequant_matmul", "dequant_matmul.cu", "dequant_matmul_bf16",
+    [_PTR] * 7 + [_INT] * 8 + [_PTR],
 )
 KERNELS = (GROUPED_QMV, DEQUANT_MATMUL)
 
