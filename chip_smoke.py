@@ -9,12 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. build every CUDA kernel from ``src/qwen3_tts_tpu_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, started together) into build/kernels/,
-   printing ptxas' registers and spills; kernel B must spill nothing;
+   printing ptxas' registers and spills; no kernel may spill;
 2. hold each kernel against its plain PyTorch version on the card at every
    flagship (N, K) at the row counts the main path plans for it (M=1, the
    decode chunks, the prefill rows) plus one tiny shape, in bf16, with
-   max|kernel - plain| <= 1e-2 * max|plain|; kernel B twice, its two
-   outputs bit-identical (split-K reduced in a fixed order); time kernel,
+   max|kernel - plain| <= 1e-2 * max|plain|; each kernel twice, its two
+   outputs bit-identical (split-K reduced in a fixed order), with its
+   launch plan's path, rows per block, splits and blocks; time kernel,
    plain version, and a library yardstick (plain dequantization plus one
    torch.matmul), and compute the bound (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, whichever is larger); then one
@@ -128,12 +129,11 @@ def phase_build():
                  if "registers" in ln or "spill" in ln]
         log({"phase": "build", "kernel": k.name, "library": str(
             k.library_path().relative_to(ROOT)), "ptxas": ptxas})
-        if k is cuda_kernels.DEQUANT_MATMUL:
-            spills = [ln for ln in ptxas if "spill" in ln]
-            if not spills:
-                fail(f"{k.name}: no ptxas spill lines in its build log")
-            if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in spills):
-                fail(f"{k.name}: ptxas reports spills: {spills}")
+        spills = [ln for ln in ptxas if "spill" in ln]
+        if not spills:
+            fail(f"{k.name}: no ptxas spill lines in its build log")
+        if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in spills):
+            fail(f"{k.name}: ptxas reports spills: {spills}")
     log({"phase": "build", "build_s": round(build_s, 3)})
 
 
@@ -159,7 +159,7 @@ def planned_cases() -> list[tuple]:
 
     chunks = set(chunk_plan(default_chunk_schedule(configs.flagship().talker),
                             MAIN_FRAMES))
-    rows = {"grouped_qmv": {1, 8, 32, 64} | chunks,
+    rows = {"grouped_qmv": {1, 8, 24, 32, 64} | chunks,
             "dequant_matmul": {1, 32, 128} | chunks}
     cases = [(name, m, n, k, GS) for n, k in FLAGSHIP_NK
              for name, ms in rows.items() for m in sorted(ms)]
@@ -175,7 +175,7 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
         dequant_matmul_cuda, dense_matmul, plan_kernel_b, quantized_matmul_ref,
     )
     from qwen3_tts_tpu_torch.ops.grouped_qmv import (
-        _dense_route, grouped_qmv_cuda, pack_grouped,
+        _dense_route, grouped_qmv_cuda, pack_grouped, plan_kernel_a,
         quantized_matmul_grouped_ref,
     )
     from qwen3_tts_tpu_torch.ops.quant import dequantize
@@ -219,15 +219,19 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
         if not math.isfinite(err) or err > TOL * scale_ref:
             fail(f"{name} M={m} N={n} K={k} gs={gs}: max|kernel-plain| {err} "
                  f"> {TOL} * {scale_ref}")
-        extra = {}
+        again = kern(*sets[0])
+        if not torch.equal(got, again):
+            fail(f"{name} M={m} N={n} K={k} gs={gs}: two launches on the "
+                 "same inputs differ")
         if name == "dequant_matmul":
-            again = kern(*sets[0])
-            if not torch.equal(got, again):
-                fail(f"{name} M={m} N={n} K={k} gs={gs}: two launches on the "
-                     "same inputs differ")
             plan = plan_kernel_b(m, n, k, gs, sm_count)
             extra = {"ring": plan.ring, "m_frags": plan.m_frags,
-                     "k_splits": plan.k_splits, "blocks": plan.blocks}
+                     "rows": plan.tile_m}
+        else:
+            plan = plan_kernel_a(m, n, k, gs, sm_count)
+            extra = {"ring": plan.ring, "ragged": plan.ragged,
+                     "rows": plan.rows}
+        extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
         t_kern = device_time_ms(torch, kern, sets)
         t_plain = device_time_ms(torch, plain, sets)
         t_lib = device_time_ms(torch, lib, sets)

@@ -69,6 +69,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------- ring path
@@ -105,25 +107,6 @@ struct Ring {
   static constexpr int kRedA = NF <= 4 ? 16 / NF : 2;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Two codes (bytes lo and lo + 1 of word) -> two bf16 weights packed for an
 // mma fragment register, byte lo in the low half. A code becomes its exact
 // f32 value as 2^23 + code - 2^23.
@@ -146,13 +129,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void add4(float4& s, const float4& v) {
-  s.x += v.x;
-  s.y += v.y;
-  s.z += v.z;
-  s.w += v.w;
 }
 
 __device__ __forceinline__ void store_bf16(__nv_bfloat16* out, int n, int N,

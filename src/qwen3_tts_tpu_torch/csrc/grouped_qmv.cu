@@ -6,36 +6,486 @@
 //   out[m, n] = sum_g sg[g, n] * (x[m, g*gs:(g+1)*gs] . qg[g, :, n])
 //             + sum_g bg[g, n] * xsum[m, g]
 //
-// x [M, K] bf16, qg [G, gs, N] uint8, sg/bg [G, N] f32, out [M, N] bf16.
-// The u8 code widens to the activation type (exact), each product is exact in
-// f32, the per-group partial sum, the affine step and the accumulator are f32,
-// and the output is rounded to bf16. No dequantized weight is ever formed.
+// x [M, K] bf16, qg [G, gs, N] uint8 (a [K, N] matrix of codes, n
+// contiguous), sg/bg [G, N] f32, out [M, N] bf16. The u8 code widens to f32
+// exactly, each product x * code is exact in f32, the per-group partial sum,
+// the affine step and the accumulator are f32, and the output is rounded to
+// bf16. No dequantized weight is ever formed, so no product needs the tensor
+// cores: the arithmetic is f32 FMAs on the CUDA cores.
 //
-// Bound on this card: device-memory bytes. At decode (M <= 32) every weight
-// byte is used for M multiply-adds, far below the ~295 operations per byte
-// where Hopper's compute becomes the limit; the weights cost 1.125 bytes
-// each at gs = 64 (u8 code plus the f32 scale and bias of its group).
+// What bounds it on an H100: device-memory bytes at M <= 64. A code costs
+// 1.125 bytes at gs = 64 (the u8 plus its group's f32 scale and bias) and
+// M multiply-adds; HBM3's 3.35 TB/s streams a 12 MB weight in ~4 us, which
+// needs some 25 KB of loads in flight on each of the 132 SMs, while an
+// N = 2048 matrix cut into output tiles gives only 16-64 blocks. At M = 64
+// the ~30 T FMA/s of the CUDA cores come close to the limit as well.
 //
-// Design for that bound: one block owns 32 output columns. Within a block,
-// 8 threads side by side take 4 neighbouring columns each (one 4-byte load
-// per row, 32 contiguous bytes per row for the 8), and 32 threads split the
-// groups of K, so a warp reads whole 32-byte sectors of 4 groups at once and
-// every weight byte is read from device memory exactly once. Each thread
-// issues its group's rows 16 loads at a time into registers before using
-// them, since at one row per block the loads' latency, not their bytes,
-// sets the time.
-// The x rows of the current K range are staged in shared memory (bf16,
-// exact) and read as broadcasts. A thread keeps its group's partial sums and its running
-// accumulator in registers and applies scale and bias once per group, like
-// the TPU kernel. The 32 group lanes are summed at the end through shared
-// memory in a fixed order: no atomics, the result is the same on every run.
-// Grid: (ceil(N / 32), ceil(M / MT)); MT = 1 for single-row decode, else 8.
+// The ring path, for K a multiple of 64, gs in {16, 32, 64} (a 64-row slice
+// holds whole groups), M <= 64 and 16-byte aligned x:
+// - One block owns 128 output columns and ALL M rows, over a range of K, so
+//   the weight crosses device memory once at every M. Warps are 8-row bands
+//   of M (R = 1, 2, 4 or 8 rows at M <= 8) times kKP parts of each slice's
+//   64 k-rows (4 parts of 16 rows at M <= 16, 2 at M <= 32, else 1), and
+//   2 or 3 blocks fit an SM (__launch_bounds__ holds ptxas to it). A lane owns
+//   4 adjacent columns and reads their 4 codes of a k-row as one 32-bit
+//   shared word (the warp reads 128 contiguous bytes: no bank conflict),
+//   widens them exactly (2^23 + code as f32, minus 2^23) and FMAs them
+//   against x, broadcast from shared memory, into a per-group partial
+//   part[R][4]; at the end of a group it adds part * sg + xsum * bg into
+//   its running acc[R][4]. xsum[m, g] is summed once per block from global
+//   x, whose loads are issued before the ring's first copies.
+// - Split-K. The host plan (ops/grouped_qmv.py::plan_kernel_a) cuts K into
+//   k_splits ranges of whole slices, as many as fill the SMs in the fewest
+//   waves. Grid
+//   (ceil(N / 128), k_splits). The block sums its kKP parts in a fixed order
+//   through shared memory; with more than one split it writes its f32
+//   partial tile to a workspace [k_splits][tiles][TM][128], and the block
+//   that draws the tile's last ticket sums the partials in split order
+//   0..S-1, rounds to bf16 and resets the counter (kernel B's scheme, with
+//   one acq_rel atomic for the ticket in place of two fences): one launch
+//   a call, results that repeat bit for bit.
+// - A ring of kStages slices in dynamic shared memory, filled by 16-byte
+//   cp.async.cg copies of the [64 x 128] codes and the block's x rows; the
+//   split's scale/bias columns are copied once, in the first group.
+// - Ragged N (the codec head, N = 2051) or an unaligned qg: a code row
+//   starts at any byte, so each row is copied as its 16-byte-aligned-down
+//   window plus 16 more bytes (144 bytes), and a lane shifts its word out of
+//   two aligned words (__funnelshift_r) by the row's own offset.
+// - Programmatic dependent launch, as kernel B: blocks are scheduled while
+//   the kernel before finishes, and wait for it before touching memory.
+//
+// The simple path (this kernel's first design, unchanged) takes every
+// other shape: K not a multiple of 64, gs not in {16, 32, 64}, unaligned
+// x. One block owns 32 output columns and 1 or 8 rows of M; 8 threads
+// across N (4 columns each) times 32 lanes over the groups of K, summed
+// through shared memory in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------- ring path
+
+constexpr int kTN = 128;         // output columns a block (4 a lane)
+constexpr int kTK = 64;          // K of one ring slice (whole groups)
+constexpr int kXRow = kTK * 2;   // bytes of a staged x row (bf16)
+constexpr int kSbGroupsMax = 64; // groups of one split (the plan keeps to it)
+constexpr int kMaxDevices = 64;
+
+// One instance: BANDS bands of R rows of M (R < 8 only with one band).
+template <int R, int BANDS, bool RAGGED>
+struct Ring {
+  // parts of each slice's 64 k-rows, one warp per (band, part)
+  static constexpr int kKP = BANDS <= 2 ? 4 : BANDS <= 4 ? 2 : 1;
+  static constexpr int kThreads = 32 * BANDS * kKP;
+  static constexpr int kRows = R * BANDS;  // rows of M a block covers (TM)
+  static constexpr int kC = kTK / kKP;     // k-rows of a slice per warp
+  static constexpr int kStages = kRows <= 8 ? 6 : 4;
+  // 16-byte copies a code row: 8, or 9 for the aligned-down window
+  static constexpr int kChunks = kTN / 16 + (RAGGED ? 1 : 0);
+  static constexpr int kQRow = 16 * kChunks;
+  static constexpr int kQBytes = kTK * kQRow;
+  static constexpr int kStageBytes = kQBytes + kRows * kXRow;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kTile = kRows * kTN;  // floats of a partial tile
+  // blocks an SM holds: ptxas keeps the registers to it, the host plan
+  // (ops/grouped_qmv.py::blocks_per_sm) counts on it
+  static constexpr int kMinBlocks = BANDS == 1 ? 3 : 2;
+  // the last block's reduction: float4 a thread per batch, splits a batch
+  static constexpr int kRedU = kRows * (kTN / 4) >= kThreads ? kRows * (kTN / 4) / kThreads : 1;
+  static constexpr int kRedA = 16 / kRedU > 0 ? 16 / kRedU : 1;
+  static_assert(kKP * kTile * 4 <= kRing, "the part sums reuse the ring");
+};
+
+// Shared memory after the ring: scale and bias [2][groups][kTN] floats, then
+// xsum [groups][rows].
+__host__ __device__ constexpr int table_bytes(int groups, int rows) {
+  return groups * (2 * kTN + rows) * 4;
+}
+
+__device__ __forceinline__ float widen(unsigned word, int c) {
+  return __uint_as_float(__byte_perm(word, 0x4b000000u, 0x7540 | c)) - 8388608.f;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// The 4 codes of a lane in a staged code row. RAGGED: the row is the
+// aligned-down window of a row that starts sh = qlow & 15 bytes into it.
+template <bool RAGGED>
+__device__ __forceinline__ unsigned code_word(const uint8_t* row, int lane,
+                                              unsigned qlow) {
+  if (!RAGGED) return *reinterpret_cast<const unsigned*>(row + 4 * lane);
+  const uint8_t* p = row + (qlow & 12u) + 4 * lane;
+  const unsigned lo = *reinterpret_cast<const unsigned*>(p);
+  const unsigned hi = *reinterpret_cast<const unsigned*>(p + 4);
+  return __funnelshift_r(lo, hi, 8 * (qlow & 3u));
+}
+
+// 8 k-rows into part, 4 at a time: q is the first staged code row, xs the
+// band's first x row at the same k, qlow the low address bits of the first
+// row's start (each next row starts N bytes later).
+template <int R, int QROW, bool RAGGED>
+__device__ __forceinline__ void step8(float (&part)[R][4], const uint8_t* q,
+                                      const uint8_t* xs, int lane,
+                                      unsigned qlow, unsigned N) {
+#pragma unroll
+  for (int h = 0; h < 8; h += 4) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = code_word<RAGGED>(q + (h + j) * QROW, lane, qlow + (h + j) * N);
+    uint2 xv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      xv[r] = *reinterpret_cast<const uint2*>(xs + r * kXRow + 2 * h);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float c[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] = widen(w[j], e);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const unsigned xw = j < 2 ? xv[r].x : xv[r].y;
+        const float xf = (j & 1) ? bf16_hi(xw) : bf16_lo(xw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[r][e] = fmaf(xf, c[e], part[r][e]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store4_bf16(__nv_bfloat16* row, int n, int N,
+                                            const float4& v) {
+  if (n < N) row[n] = __float2bfloat16_rn(v.x);
+  if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v.y);
+  if (n + 2 < N) row[n + 2] = __float2bfloat16_rn(v.z);
+  if (n + 3 < N) row[n + 3] = __float2bfloat16_rn(v.w);
+}
+
+template <int R, int BANDS, bool RAGGED>
+__global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
+                                  Ring<R, BANDS, RAGGED>::kMinBlocks) ring_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qg,
+    const float* __restrict__ sg, const float* __restrict__ bg,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int M, int K, int N, int gs, int sb_groups) {
+  using P = Ring<R, BANDS, RAGGED>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int ticket;
+
+  // Launched with programmatic stream serialization: touch global memory
+  // only once the kernel before has finished.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int band = warp % BANDS;
+  const int kp = warp / BANDS;
+  const int n0 = blockIdx.x * kTN;
+  const int ncols = min(kTN, N - n0);
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int units = K / kTK;
+  const int kb = static_cast<int>(static_cast<long long>(split) * units / splits) * kTK;
+  const int ke = static_cast<int>(static_cast<long long>(split + 1) * units / splits) * kTK;
+  const int slices = (ke - kb) / kTK;
+  const int gspan = (ke - kb) / gs;  // groups of this split
+  const int g0 = kb / gs;
+  const int rows = M;                // <= P::kRows (the plan)
+  const int band_rows = min(R, rows - band * R);  // may be <= 0: idle band
+  float* sbt = reinterpret_cast<float*>(smem + P::kRing);  // [2][sb_groups][kTN]
+  float* xst = sbt + 2 * sb_groups * kTN;                  // [sb_groups][kRows]
+  const uintptr_t qbase = reinterpret_cast<uintptr_t>(qg) + n0;
+
+  // One slice: 64 code rows of the block's columns (only chunks that start
+  // before the tile's last column), and the x rows < M. Chunks not copied
+  // reach only outputs that are never stored.
+  auto load = [&](int stage, int s) {
+    uint8_t* base = smem + stage * P::kStageBytes;
+    const int k0 = kb + s * kTK;
+    for (int i = tid; i < kTK * P::kChunks; i += P::kThreads) {
+      const int row = i / P::kChunks;
+      const int c = i - row * P::kChunks;
+      const uintptr_t a = qbase + static_cast<size_t>(k0 + row) * N;
+      const uintptr_t src = (RAGGED ? a & ~uintptr_t(15) : a) + 16 * c;
+      if (src < a + ncols)
+        cp_async16(base + row * P::kQRow + 16 * c, reinterpret_cast<const void*>(src));
+    }
+    uint8_t* xs = base + P::kQBytes;
+    for (int i = tid; i < rows * (kXRow / 16); i += P::kThreads) {
+      const int m = i >> 3;
+      const int c = i & 7;
+      cp_async16(xs + m * kXRow + 16 * c, x + static_cast<size_t>(m) * K + k0 + 8 * c);
+    }
+  };
+
+  // xsum[m, g] of the split's groups comes from global x (in L2: the kernel
+  // before wrote it). A thread's first (m, g) is loaded before any copy is
+  // issued, so that it returns ahead of the slices instead of behind them,
+  // and summed (k in order: the same sums in every block and run) once the
+  // copies are on their way.
+  uint4 xu[kTK / 8];  // gs <= kTK
+  auto xsum_load = [&](int i) {
+    const int g = i / rows;
+    const int m = i - g * rows;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        x + static_cast<size_t>(m) * K + kb + g * gs);
+#pragma unroll
+    for (int v = 0; v < kTK / 8; ++v)
+      if (v < gs / 8) xu[v] = src[v];
+  };
+  auto xsum_store = [&](int i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < kTK / 8; ++v) {
+      if (v < gs / 8) {
+        sum += bf16_lo(xu[v].x);
+        sum += bf16_hi(xu[v].x);
+        sum += bf16_lo(xu[v].y);
+        sum += bf16_hi(xu[v].y);
+        sum += bf16_lo(xu[v].z);
+        sum += bf16_hi(xu[v].z);
+        sum += bf16_lo(xu[v].w);
+        sum += bf16_hi(xu[v].w);
+      }
+    }
+    const int g = i / rows;
+    xst[g * P::kRows + i - g * rows] = sum;
+  };
+  const int xsum_items = gspan * rows;
+  if (tid < xsum_items) xsum_load(tid);
+
+  // The first group of copies: slice 0 and the split's scale/bias columns;
+  // then one group for each of slices 1 .. kStages - 2.
+  if (slices > 0) load(0, 0);
+  if (!RAGGED) {  // 16-byte rows of 4 columns (N % 16 == 0, aligned sg, bg)
+    for (int i = tid; i < 2 * gspan * (kTN / 4); i += P::kThreads) {
+      const int row = i / (kTN / 4);
+      const int c = 4 * (i % (kTN / 4));
+      const bool bias = row >= gspan;
+      const int g = bias ? row - gspan : row;
+      if (c < ncols)
+        cp_async16(sbt + ((bias ? sb_groups : 0) + g) * kTN + c,
+                   (bias ? bg : sg) + static_cast<size_t>(g0 + g) * N + n0 + c);
+    }
+  } else {
+    for (int i = tid; i < 2 * gspan * kTN; i += P::kThreads) {
+      const int row = i / kTN;
+      const int c = i % kTN;
+      const bool bias = row >= gspan;
+      const int g = bias ? row - gspan : row;
+      if (c < ncols)
+        cp_async4(sbt + ((bias ? sb_groups : 0) + g) * kTN + c,
+                  (bias ? bg : sg) + static_cast<size_t>(g0 + g) * N + n0 + c);
+    }
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < P::kStages - 1; ++s) {
+    if (s < slices) load(s, s);
+    cp_async_commit();
+  }
+
+  for (int i = tid; i < xsum_items; i += P::kThreads) {
+    if (i != tid) xsum_load(i);
+    xsum_store(i);
+  }
+
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+
+  // a warp's k-rows of a slice, in runs that lie inside one group
+  const int run = min(P::kC, gs);
+  for (int i = 0; i < slices; ++i) {
+    cp_async_wait<P::kStages - 2>();  // slice i has landed ...
+    __syncthreads();  // ... for every thread, and slice i - 1's stage is free
+    const int next = i + P::kStages - 1;
+    if (next < slices) load(next % P::kStages, next);
+    cp_async_commit();
+    if (band_rows <= 0) continue;  // warp-uniform: a band past M
+
+    const uint8_t* base = smem + (i % P::kStages) * P::kStageBytes;
+    const int kw = kp * P::kC;  // the warp's first k-row in the slice
+    for (int u0 = kw; u0 < kw + P::kC; u0 += run) {
+      float part[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[r][e] = 0.f;
+      for (int j0 = u0; j0 < u0 + run; j0 += 8) {
+        const unsigned qlow = static_cast<unsigned>(qbase) +
+                              static_cast<unsigned>(kb + i * kTK + j0) * static_cast<unsigned>(N);
+        step8<R, P::kQRow, RAGGED>(part, base + j0 * P::kQRow,
+                                   base + P::kQBytes + band * R * kXRow + j0 * 2,
+                                   lane, qlow, static_cast<unsigned>(N));
+      }
+      // the group's affine step; xsum * bias once per group, by the warp
+      // whose run starts it
+      const int kl = i * kTK + u0;  // from the split's first k
+      const int gi = kl / gs;
+      const float4 s4 = *reinterpret_cast<const float4*>(sbt + gi * kTN + 4 * lane);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r][0] = fmaf(part[r][0], s4.x, acc[r][0]);
+        acc[r][1] = fmaf(part[r][1], s4.y, acc[r][1]);
+        acc[r][2] = fmaf(part[r][2], s4.z, acc[r][2]);
+        acc[r][3] = fmaf(part[r][3], s4.w, acc[r][3]);
+      }
+      if (kl == gi * gs) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(sbt + (sb_groups + gi) * kTN + 4 * lane);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float xs = xst[gi * P::kRows + band * R + r];
+          acc[r][0] = fmaf(xs, b4.x, acc[r][0]);
+          acc[r][1] = fmaf(xs, b4.y, acc[r][1]);
+          acc[r][2] = fmaf(xs, b4.z, acc[r][2]);
+          acc[r][3] = fmaf(xs, b4.w, acc[r][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // the block's kKP parts, [kKP][kRows][kTN], summed in part order
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < band_rows)
+      *reinterpret_cast<float4*>(red + (kp * P::kRows + band * R + r) * kTN + 4 * lane) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  const float4* red4 = reinterpret_cast<const float4*>(red);
+  const int n4 = rows * (kTN / 4);
+  auto block_sum = [&](int i) {
+    float4 sum = red4[i];
+#pragma unroll
+    for (int p = 1; p < P::kKP; ++p) add4(sum, red4[p * (P::kTile / 4) + i]);
+    return sum;
+  };
+  if (splits == 1) {
+    for (int i = tid; i < n4; i += P::kThreads)
+      store4_bf16(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N,
+                  block_sum(i));
+    return;
+  }
+  const int tiles = gridDim.x;
+  const int tile = blockIdx.x;
+  float4* part4 = reinterpret_cast<float4*>(ws) +
+                  (static_cast<size_t>(split) * tiles + tile) * (P::kTile / 4);
+  for (int i = tid; i < n4; i += P::kThreads) part4[i] = block_sum(i);
+  // the block's stores, then one thread's ticket
+  __syncthreads();
+  if (tid == 0) {  // release of the block's partials, acquire of the others'
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(t) : "l"(counters + tile) : "memory");
+    ticket = t;
+  }
+  __syncthreads();
+  if (ticket != splits - 1) return;
+  // the last block: the tile's sums over the splits in order 0..S-1, kRedU
+  // float4 a thread at a time, the partials of kRedA splits loaded before
+  // they are added
+  constexpr int U = P::kRedU;
+  constexpr int A = P::kRedA;
+  const float4* w4 = reinterpret_cast<const float4*>(ws) +
+                     static_cast<size_t>(tile) * (P::kTile / 4);
+  const size_t step4 = static_cast<size_t>(tiles) * (P::kTile / 4);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = tid; i0 < n4; i0 += U * P::kThreads) {
+    float4 sum[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) sum[u] = zero4;
+    int s = 0;
+    for (; s + A <= splits; s += A) {
+      float4 v[A][U];
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * P::kThreads;
+          v[a][u] = i < n4 ? __ldcg(w4 + (s + a) * step4 + i) : zero4;
+        }
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int u = 0; u < U; ++u) add4(sum[u], v[a][u]);
+    }
+    for (; s < splits; ++s) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * P::kThreads;
+        if (i < n4) add4(sum[u], __ldcg(w4 + s * step4 + i));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * P::kThreads;
+      if (i < n4)
+        store4_bf16(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N, sum[u]);
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int R, int BANDS, bool RAGGED>
+cudaError_t launch_ring(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
+                        const float* bg, __nv_bfloat16* out, float* ws,
+                        int* counters, int M, int K, int N, int gs, int k_splits,
+                        int sb_groups, cudaStream_t stream) {
+  using P = Ring<R, BANDS, RAGGED>;
+  static bool smem_set[kMaxDevices] = {};  // the attribute, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(ring_kernel<R, BANDS, RAGGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               P::kRing + table_bytes(kSbGroupsMax, P::kRows));
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTN - 1) / kTN, k_splits);
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = P::kRing + table_bytes(sb_groups, P::kRows);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ring_kernel<R, BANDS, RAGGED>, x, qg, sg, bg, out,
+                           ws, counters, M, K, N, gs, sb_groups);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int R, int BANDS>
+cudaError_t launch_ring_any(bool ragged, const __nv_bfloat16* x, const uint8_t* qg,
+                            const float* sg, const float* bg, __nv_bfloat16* out,
+                            float* ws, int* counters, int M, int K, int N, int gs,
+                            int k_splits, int sb_groups, cudaStream_t stream) {
+  if (M > R * BANDS) return cudaErrorInvalidValue;
+  return ragged ? launch_ring<R, BANDS, true>(x, qg, sg, bg, out, ws, counters, M, K,
+                                              N, gs, k_splits, sb_groups, stream)
+                : launch_ring<R, BANDS, false>(x, qg, sg, bg, out, ws, counters, M, K,
+                                               N, gs, k_splits, sb_groups, stream);
+}
+
+// -------------------------------------------------------------- simple path
 
 constexpr int kCols = 32;                  // output columns per block
 constexpr int kQuads = kCols / 4;          // threads across N, 4 columns each
@@ -67,8 +517,10 @@ __device__ __forceinline__ unsigned load_codes(const uint8_t* __restrict__ row,
   return v;
 }
 
+// (a minimum of 1 block per SM: with ptxas' default cap of 128 registers
+// the 8-row instance spilled)
 template <int MT, bool VEC>
-__global__ void __launch_bounds__(kThreads) qmv_grouped_kernel(
+__global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qg,
     const float* __restrict__ sg, const float* __restrict__ bg,
     __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs) {
@@ -174,9 +626,9 @@ __global__ void __launch_bounds__(kThreads) qmv_grouped_kernel(
 }
 
 template <int MT>
-void launch(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
-            const float* bg, __nv_bfloat16* out, int M, int K, int N, int gs,
-            cudaStream_t stream) {
+cudaError_t launch_simple(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
+                          const float* bg, __nv_bfloat16* out, int M, int K, int N,
+                          int gs, cudaStream_t stream) {
   const dim3 grid((N + kCols - 1) / kCols, (M + MT - 1) / MT);
   if (N % 4 == 0 && reinterpret_cast<uintptr_t>(qg) % 4 == 0)
     qmv_grouped_kernel<MT, true><<<grid, kThreads, 0, stream>>>(
@@ -184,23 +636,57 @@ void launch(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
   else
     qmv_grouped_kernel<MT, false><<<grid, kThreads, 0, stream>>>(
         x, qg, sg, bg, out, M, K, N, gs);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// One launch of kernel A as planned by ops/grouped_qmv.py::plan_kernel_a:
+// bands = 0 takes the simple path; (band_rows, bands) in {(1, 1), (2, 1),
+// (4, 1), (8, 1), (8, 2), (8, 3), (8, 4), (8, 8)} the ring path, with
+// k_splits splits of K in whole 64-row slices, each holding at most
+// sb_groups groups (ws: k_splits * ceil(N / 128) * band_rows * bands * 128
+// floats, and counters: one zeroed int per 128-column tile, when
+// k_splits > 1). Returns the CUDA error of the launch (0 = launched).
 extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
-                                const void* bg, void* out, int M, int K, int N,
-                                int gs, void* stream) {
+                                const void* bg, void* out, void* ws,
+                                void* counters, int M, int K, int N, int gs,
+                                int band_rows, int bands, int k_splits,
+                                int sb_groups, void* stream) {
   auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<const uint8_t*>(qg);
   auto* sp = static_cast<const float*>(sg);
   auto* bp = static_cast<const float*>(bg);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* wp = static_cast<float*>(ws);
+  auto* cp = static_cast<int*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M == 1)
-    launch<1>(xp, qp, sp, bp, op, M, K, N, gs, st);
-  else
-    launch<kMaxRows>(xp, qp, sp, bp, op, M, K, N, gs, st);
-  return static_cast<int>(cudaGetLastError());
+  if (bands == 0)
+    return static_cast<int>(M == 1 ? launch_simple<1>(xp, qp, sp, bp, op, M, K, N, gs, st)
+                                   : launch_simple<kMaxRows>(xp, qp, sp, bp, op, M, K,
+                                                             N, gs, st));
+  // what the ring path takes (the plan sends nothing else)
+  if (K % kTK || gs % 16 || kTK % gs || reinterpret_cast<uintptr_t>(x) % 16 ||
+      k_splits < 1 || k_splits > K / kTK || sb_groups > kSbGroupsMax ||
+      (K / kTK + k_splits - 1) / k_splits * (kTK / gs) > sb_groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ragged =
+      N % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(qg) | reinterpret_cast<uintptr_t>(sg) |
+       reinterpret_cast<uintptr_t>(bg)) % 16 != 0;
+#define RING_CASE(R, B)                                                          \
+  if (band_rows == R && bands == B)                                              \
+    return static_cast<int>(launch_ring_any<R, B>(ragged, xp, qp, sp, bp, op, wp, \
+                                                  cp, M, K, N, gs, k_splits,     \
+                                                  sb_groups, st));
+  RING_CASE(1, 1)
+  RING_CASE(2, 1)
+  RING_CASE(4, 1)
+  RING_CASE(8, 1)
+  RING_CASE(8, 2)
+  RING_CASE(8, 3)
+  RING_CASE(8, 4)
+  RING_CASE(8, 8)
+#undef RING_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,16 +5,20 @@ library with a plain C interface, loaded with ``ctypes``. Nothing is built
 when this module is imported: a kernel builds at its first launch (or all
 at once through :func:`build_all`, one ``nvcc`` per source, started
 together) into ``build/kernels/`` at the repository root. Library names
-carry a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads.
+carry a hash of the source, of the headers it includes and of the flags,
+so an edited source or header rebuilds and an unchanged one loads.
 
-Kernel A's C entry point has the signature::
+Both C entry points have the signature::
 
     int fn(const void* x, const void* w, const void* scale, const void* bias,
-           void* out, int M, int K, int N, int gs, void* stream)
+           void* out, void* workspace, void* counters, int M, int K, int N,
+           int gs, int plan0, int plan1, int plan2, int plan3, void* stream)
 
-Kernel B's adds its split-K workspace, tile counters and plan (see
-``csrc/dequant_matmul.cu``). Each returns the CUDA error of its launch;
+with the split-K workspace, the tile counters and four ints of the host's
+launch plan: kernel A's (band_rows, bands, k_splits, sb_groups) from
+``ops/grouped_qmv.py::plan_kernel_a``, kernel B's (m_frags, k_splits,
+k_unit, sb_groups) from ``ops/dequant_matmul.py::plan_kernel_b`` (see each
+source's entry point). Each returns the CUDA error of its launch;
 :class:`Kernel` raises when that is not 0, and counts the launches that
 succeeded and the (M, N, K, gs) shapes they ran. The nvcc output of a build
 (ptxas' registers and spills) is kept beside its library.
@@ -25,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -69,9 +74,17 @@ class Kernel:
         self.build_log = ""
         self._fn = None
 
+    def headers(self) -> list[Path]:
+        """The headers the source includes with ``#include "..."``, found
+        beside it as nvcc finds them."""
+        names = re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                           self.source.read_text(), flags=re.M)
+        return [self.source.parent / name for name in names]
+
     def library_path(self) -> Path:
+        text = b"".join(p.read_bytes() for p in [self.source, *self.headers()])
         digest = hashlib.sha1(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            text + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:12]
         return BUILD_DIR / f"{self.name}-{digest}.so"
 
@@ -109,12 +122,6 @@ class Kernel:
         lib.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, lib)
 
-    def launch(self, x, w, scale, bias, out, M: int, K: int, N: int, gs: int,
-               stream: int) -> None:
-        """Launch with the common signature on ``stream`` (a
-        ``cudaStream_t`` as int). Pointers are ``tensor.data_ptr()`` ints."""
-        self.call((x, w, scale, bias, out, M, K, N, gs, stream), (M, N, K, gs))
-
     def call(self, args: tuple, shape: tuple[int, int, int, int]) -> None:
         """Call the C entry point with ``args`` (one launch of the
         (M, N, K, gs) ``shape``); raises if the launch was refused."""
@@ -130,16 +137,15 @@ class Kernel:
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-GROUPED_QMV = Kernel(
-    "grouped_qmv", "grouped_qmv.cu", "qmv_grouped_bf16",
-    [_PTR] * 5 + [_INT] * 4 + [_PTR],
-)
-# x, q, scale, bias, out, workspace, counters; M, K, N, gs, m_frags,
-# k_splits, k_unit, sb_groups; stream
-DEQUANT_MATMUL = Kernel(
-    "dequant_matmul", "dequant_matmul.cu", "dequant_matmul_bf16",
-    [_PTR] * 7 + [_INT] * 8 + [_PTR],
-)
+# x, w, scale, bias, out, workspace, counters; M, K, N, gs and four ints of
+# the plan; stream
+_ARGTYPES = [_PTR] * 7 + [_INT] * 8 + [_PTR]
+# plan ints: band_rows, bands, k_splits, sb_groups
+GROUPED_QMV = Kernel("grouped_qmv", "grouped_qmv.cu", "qmv_grouped_bf16",
+                     _ARGTYPES)
+# plan ints: m_frags, k_splits, k_unit, sb_groups
+DEQUANT_MATMUL = Kernel("dequant_matmul", "dequant_matmul.cu",
+                        "dequant_matmul_bf16", _ARGTYPES)
 KERNELS = (GROUPED_QMV, DEQUANT_MATMUL)
 
 

@@ -22,19 +22,106 @@ takes the plain version ``quantized_matmul_grouped_ref``; a CUDA tensor
 launches kernel A (``csrc/grouped_qmv.cu``) or raises. Rows above
 ``MAX_M`` are compute-heavy (prefill): there the weight is dequantized once
 and multiplied densely, on either device, as the JAX package does.
+``plan_kernel_a`` picks, from the shape alone, kernel A's path, its bands
+of M and its split of K.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .cuda_kernels import GROUPED_QMV
+from .dequant_matmul import _scratch, _sm_count
 from .quant import is_quantized
 
 MAX_M = 64  # above this the op is compute-heavy: dequantize once, dense matmul
+TILE_N = 128               # output columns per ring block
+SLICE_K = 64               # K of one ring slice (whole groups: gs divides it)
+# (rows a band holds, bands) of the ring's instances, by the rows they cover
+BANDS = ((1, 1), (2, 1), (4, 1), (8, 1), (8, 2), (8, 3), (8, 4), (8, 8))
+MAX_SPLITS = 16            # splits of K at most
+SB_GROUPS_MAX = 64         # groups of one split (its scale/bias table)
+# a split's fixed cost (prologue, partial tile, ticket), in slices of work
+SPLIT_OVERHEAD_SLICES = 0.5
+SIMPLE_TILE_N = 32         # output columns per block of the simple kernel
+
+
+def blocks_per_sm(bands: int) -> int:
+    """Blocks of a ring instance that ``split_cost`` counts as one wave on
+    an SM: as many as it holds (the kernel's ``__launch_bounds__`` minimum,
+    3 at M <= 8, else 2) up to 24 rows, where the time is the weight's
+    loads; above, the FMAs of the blocks on an SM share it, so one."""
+    return 3 if bands == 1 else 2 if bands <= 3 else 1
+
+
+def split_cost(splits: int, tiles: int, units: int, slots: int) -> float:
+    """The plan's time model of a split of ``units`` slices: the waves of
+    ``tiles * splits`` blocks over ``slots`` resident blocks, times the
+    slices of the longest split plus SPLIT_OVERHEAD_SLICES."""
+    waves = -(-tiles * splits // slots)
+    return waves * (-(-units // splits) + SPLIT_OVERHEAD_SLICES)
+
+
+class KernelAPlan(NamedTuple):
+    ring: bool        # False: the simple kernel (ragged K or gs, unaligned)
+    ragged: bool      # N % 16 != 0: code rows copied as aligned windows
+    band_rows: int    # rows of M a warp band holds (0 on the simple path)
+    bands: int        # bands of a block (0: the simple kernel)
+    rows: int         # rows of M per block
+    k_unit: int       # a split's K is a whole number of these (slices)
+    k_splits: int
+    sb_groups: int    # most groups in one split (0 on the simple path)
+    blocks: int
+    # f32 partial tiles [k_splits, tiles, rows, 128] and one ticket counter
+    # per 128-column tile; both 0 without a split
+    workspace_floats: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_kernel_a(m: int, n: int, k: int, gs: int, sm_count: int,
+                  aligned: bool = True) -> KernelAPlan:
+    """Kernel A's launch for x [m, k] (1 <= m <= MAX_M) and qg [k/gs, gs, n].
+
+    The ring path takes K a multiple of SLICE_K, gs in {16, 32, 64} (whole
+    groups in a slice) and 16-byte aligned x and qg; a ragged N takes it
+    too, through aligned-down row windows. One block covers all m rows, in
+    the smallest instance of BANDS that holds them, and TILE_N columns. K is
+    split in whole slices into the number of splits, at most MAX_SPLITS,
+    that ``split_cost`` rates cheapest over the instance's ``blocks_per_sm
+    * sm_count`` resident blocks (the fewest among equals, so the splits are
+    as even as the slices allow), but never fewer than keep a split's
+    scale/bias table within SB_GROUPS_MAX groups (rule and constants fitted
+    to tools/sweep_kernel_a.py on an H100, PERF.md). Every other shape takes
+    the simple kernel: 32 output columns by 1 row (m = 1) or 8 rows a block,
+    all of K."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"kernel A takes 1..{MAX_M} rows, got {m}")
+    if not aligned or k % SLICE_K or gs % 16 or SLICE_K % gs:
+        rows = 1 if m == 1 else 8
+        return KernelAPlan(False, False, 0, 0, rows, k, 1, 0,
+                           -(-n // SIMPLE_TILE_N) * -(-m // rows), 0, 0)
+    band_rows, bands = next(b for b in BANDS if b[0] * b[1] >= m)
+    rows = band_rows * bands
+    tiles = -(-n // TILE_N)
+    units = k // SLICE_K
+    fewest = -(-units // (SB_GROUPS_MAX * gs // SLICE_K))
+    slots = blocks_per_sm(bands) * sm_count
+    splits = min(range(fewest, max(fewest, min(units, MAX_SPLITS)) + 1),
+                 key=lambda s: split_cost(s, tiles, units, slots))
+    sb_groups = -(-units // splits) * (SLICE_K // gs)
+    ragged = n % 16 != 0
+    if splits == 1:
+        return KernelAPlan(True, ragged, band_rows, bands, rows, SLICE_K, 1,
+                           sb_groups, tiles, 0, 0)
+    return KernelAPlan(True, ragged, band_rows, bands, rows, SLICE_K, splits,
+                       sb_groups, tiles * splits,
+                       splits * tiles * rows * TILE_N, tiles)
 
 
 def grouped_layout(device) -> bool:
@@ -135,7 +222,8 @@ def quantized_matmul_grouped_ref(x, qg, sg, bg):
 
 
 def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
-    """Kernel A on the card: x2 [M, K] bf16 x grouped weight -> [M, N] bf16."""
+    """Kernel A on the card: x2 [M <= MAX_M, K] bf16 x grouped weight ->
+    [M, N] bf16, launched as ``plan_kernel_a`` plans it."""
     g, gs, n = qg.shape
     k = g * gs
     if x2.dtype != torch.bfloat16:
@@ -163,11 +251,18 @@ def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0:
         return out
-    with torch.cuda.device(x2.device):
-        GROUPED_QMV.launch(
-            x2.data_ptr(), qg.data_ptr(), sg.data_ptr(), bg.data_ptr(),
-            out.data_ptr(), m, k, n, gs,
-            torch.cuda.current_stream(x2.device).cuda_stream,
+    dev = x2.device
+    aligned = x2.data_ptr() % 16 == 0 and qg.data_ptr() % 16 == 0
+    plan = plan_kernel_a(m, n, k, gs, _sm_count(dev.index), aligned)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws, cnt = _scratch(dev, stream, plan)
+    with torch.cuda.device(dev):
+        GROUPED_QMV.call(
+            (x2.data_ptr(), qg.data_ptr(), sg.data_ptr(), bg.data_ptr(),
+             out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), m, k, n, gs,
+             plan.band_rows, plan.bands, plan.k_splits, plan.sb_groups,
+             stream),
+            (m, n, k, gs),
         )
     return out
 

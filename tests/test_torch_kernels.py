@@ -1,5 +1,5 @@
 """The port's two CUDA kernels against their plain PyTorch versions, and
-kernel B's launch plan.
+their launch plans.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with a GPU and no JAX:
@@ -29,9 +29,12 @@ from qwen3_tts_tpu_torch.ops.dequant_matmul import (
     quantized_matmul,
     quantized_matmul_ref,
 )
+from qwen3_tts_tpu_torch.ops import grouped_qmv
 from qwen3_tts_tpu_torch.ops.grouped_qmv import (
+    MAX_M,
     grouped_qmv_cuda,
     pack_grouped,
+    plan_kernel_a,
     quantized_matmul_grouped,
     quantized_matmul_grouped_ref,
 )
@@ -162,6 +165,128 @@ def test_kernel_sources_are_named_for_their_libraries():
         assert k.source.is_file()
         assert k.library_path().parent == cuda_kernels.BUILD_DIR
         assert k.library_path().name.startswith(k.name + "-")
+        assert [h.name for h in k.headers()] == ["cp_async.cuh"]
+
+
+def test_library_name_hashes_the_headers_a_source_includes(tmp_path):
+    """An edited header must rebuild: its bytes are in the library's name."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include <stdint.h>\n#include "h.cuh"\nint f();\n')
+    (tmp_path / "h.cuh").write_text("#pragma once\n")
+    kern = cuda_kernels.Kernel("k", str(src), "f", [])
+    assert kern.headers() == [tmp_path / "h.cuh"]
+    before = kern.library_path()
+    (tmp_path / "h.cuh").write_text("#pragma once\n// edited\n")
+    assert kern.library_path() != before
+
+
+# every flagship (N, K) at the rows the main path gives kernel A (decode,
+# the code predictor's chunks, up to MAX_M prefill rows), the tiny ragged
+# shape and shapes only the simple kernel takes
+FLAGSHIP_A_CASES = [(m, n, k, 64) for n, k in FLAGSHIP_NK
+                    for m in (1, 8, 24, 32, 64)]
+PLAN_A_CASES = FLAGSHIP_A_CASES + [
+    (3, 67, 64, 16), (5, 33, 36, 12), (2, 40, 96, 48), (1, 1040, 128, 32),
+    (40, 2051, 6144, 16)]
+
+
+@pytest.mark.parametrize("m,n,k,gs", PLAN_A_CASES)
+def test_plan_kernel_a_splits_k_in_whole_slices_and_fills_the_card(m, n, k, gs):
+    plan = plan_kernel_a(m, n, k, gs, H100_SMS)
+    ring = k % grouped_qmv.SLICE_K == 0 and gs in (16, 32, 64)
+    assert plan.ring == ring
+    if (m, n, k, gs) in FLAGSHIP_A_CASES:
+        assert plan.ring
+    if not plan.ring:
+        assert plan.bands == 0 and plan.k_splits == 1
+        assert plan.rows == (1 if m == 1 else 8)
+        assert plan.blocks == math.ceil(n / 32) * math.ceil(m / plan.rows)
+        return
+    # the smallest instance that holds every row: the weight is read once
+    assert (plan.band_rows, plan.bands) in grouped_qmv.BANDS
+    assert plan.rows == plan.band_rows * plan.bands >= m
+    smaller = [r * b for r, b in grouped_qmv.BANDS if r * b < plan.rows]
+    assert all(rows < m for rows in smaller)
+    assert plan.ragged == (n % 16 != 0)
+    # split s covers slices [s * units // S, (s + 1) * units // S), as the
+    # kernel forms them: whole slices of whole groups
+    assert plan.k_unit == grouped_qmv.SLICE_K and plan.k_unit % gs == 0
+    units = k // plan.k_unit
+    splits = plan.k_splits
+    fewest = math.ceil(k // gs / grouped_qmv.SB_GROUPS_MAX)
+    assert 1 <= splits <= max(fewest, min(units, grouped_qmv.MAX_SPLITS))
+    bounds = [s * units // splits * plan.k_unit for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    widths = [b - a for a, b in zip(bounds, bounds[1:])]
+    assert min(widths) >= plan.k_unit
+    assert max(widths) - min(widths) <= plan.k_unit  # as even as slices go
+    assert plan.sb_groups == max(widths) // gs <= grouped_qmv.SB_GROUPS_MAX
+    tiles = math.ceil(n / grouped_qmv.TILE_N)
+    assert plan.blocks == tiles * splits
+    # no other split count the plan allows is rated cheaper, and none with
+    # fewer splits as cheap
+    slots = grouped_qmv.blocks_per_sm(plan.bands) * H100_SMS
+    cost = grouped_qmv.split_cost(splits, tiles, units, slots)
+    for other in range(fewest, min(units, grouped_qmv.MAX_SPLITS) + 1):
+        alt = grouped_qmv.split_cost(other, tiles, units, slots)
+        assert alt >= cost and (alt > cost or other >= splits)
+    split = splits > 1
+    assert plan.workspace_floats == (
+        splits * tiles * plan.rows * grouped_qmv.TILE_N if split else 0)
+    assert plan.counters == (tiles if split else 0)
+
+
+def test_plan_kernel_a_fills_the_card_in_one_wave_at_decode():
+    """At M=1 the talker's linears take the most splits, up to MAX_SPLITS,
+    that fit one wave of resident blocks (3 an SM)."""
+    for (n, k), want in {(6144, 2048): 8, (2048, 6144): 16, (2048, 2048): 16,
+                         (2051, 2048): 16, (6144, 1024): 8}.items():
+        plan = plan_kernel_a(1, n, k, 64, H100_SMS)
+        assert plan.k_splits == want
+        assert plan.blocks <= 3 * H100_SMS
+
+
+def test_plan_kernel_a_sends_unaligned_pointers_to_the_simple_kernel():
+    plan = plan_kernel_a(1, 1024, 3072, 64, H100_SMS, aligned=False)
+    assert not plan.ring and plan.k_splits == 1 and plan.blocks == 32
+
+
+def test_plan_kernel_a_takes_at_most_max_m_rows():
+    assert plan_kernel_a(MAX_M, 1024, 1024, 64, H100_SMS).rows == MAX_M
+    for m in (0, MAX_M + 1):
+        with pytest.raises(ValueError, match="rows"):
+            plan_kernel_a(m, 1024, 1024, 64, H100_SMS)
+
+
+def test_plan_kernel_a_splits_long_k_for_its_scale_bias_table():
+    """gs=16 at K=6144: 384 groups need six splits of 16 slices even where
+    the 128 tiles already fill the card."""
+    plan = plan_kernel_a(1, 16384, 6144, 16, H100_SMS)
+    assert plan.k_splits == 6 and plan.sb_groups == grouped_qmv.SB_GROUPS_MAX
+
+
+def test_kernels_a_and_b_share_one_streams_scratch():
+    """Both wrappers take the split-K workspace and counters of the stream
+    they launch on from one buffer pair, grown by powers of two."""
+    dev = torch.device("cpu")
+    a_small = plan_kernel_a(1, 2048, 2048, 64, H100_SMS)
+    a_big = plan_kernel_a(64, 6144, 2048, 64, H100_SMS)
+    b = plan_kernel_b(128, 6144, 2048, 64, H100_SMS)
+    assert a_small.workspace_floats < b.workspace_floats < a_big.workspace_floats
+    stream = -23456  # a stream handle no other test uses
+    try:
+        ws, cnt = dequant_matmul._scratch(dev, stream, a_small)
+        assert grouped_qmv._scratch is dequant_matmul._scratch
+        ws_b, cnt_b = dequant_matmul._scratch(dev, stream, b)
+        assert ws_b.numel() == 1 << (b.workspace_floats - 1).bit_length()
+        assert cnt_b is cnt and not cnt.any()
+        ws_a, cnt_a = dequant_matmul._scratch(dev, stream, a_big)
+        assert ws_a.numel() == 1 << (a_big.workspace_floats - 1).bit_length()
+        assert cnt_a is cnt
+        assert dequant_matmul._scratch(dev, stream, a_small)[0] is ws_a
+        assert dequant_matmul._scratch(dev, stream, b)[0] is ws_a
+    finally:
+        dequant_matmul._SCRATCH.pop((None, stream), None)
 
 
 @pytest.fixture
@@ -184,19 +309,66 @@ def _close(got, want):
     assert err <= REL_TOL * want.float().abs().max(), err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,gs", [(1, 2048, 2048, 64), (8, 2051, 2048, 64),
-                                      (32, 3072, 1024, 64), (64, 1024, 3072, 64),
-                                      (3, 67, 64, 16), (2, 40, 96, 48)])
-def test_kernel_a_matches_plain_on_cuda(cuda_device, m, n, k, gs):
-    g, q, s, b = _card_weights(cuda_device, 0, n, k, gs)
+def _card_grouped(dev, seed, m, n, k, gs):
+    g, q, s, b = _card_weights(dev, seed, n, k, gs)
     gp = pack_grouped({"q": q, "scale": s, "bias": b})
-    x = torch.randn((m, k), generator=g, device=cuda_device).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    return x, gp["qg"], gp["sg"], gp["bg"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,gs", [
+    (1, 2048, 2048, 64), (8, 2051, 2048, 64), (32, 3072, 1024, 64),
+    (64, 1024, 3072, 64), (3, 67, 64, 16), (2, 40, 96, 48),
+    # split-K at M = 1, 8, 64; every instance of the ring; the head
+    (1, 6144, 2048, 64), (1, 2048, 6144, 64), (8, 6144, 1024, 64),
+    (64, 6144, 2048, 64), (2, 1024, 1024, 64), (4, 1024, 2048, 32),
+    (16, 2048, 2048, 64), (24, 1024, 3072, 64), (40, 3072, 1024, 64),
+    (1, 2051, 2048, 64), (64, 2051, 2048, 64), (5, 1040, 6144, 16),
+    # the simple kernel: K not a multiple of 64, gs not dividing 64
+    (5, 33, 36, 12), (1, 1024, 1056, 32), (8, 512, 768, 48),
+])
+def test_kernel_a_matches_plain_on_cuda(cuda_device, m, n, k, gs):
+    x, qg, sg, bg = _card_grouped(cuda_device, 0, m, n, k, gs)
     before = cuda_kernels.GROUPED_QMV.launches
-    got = quantized_matmul_grouped(x, gp["qg"], gp["sg"], gp["bg"])
+    got = quantized_matmul_grouped(x, qg, sg, bg)
     assert cuda_kernels.GROUPED_QMV.launches == before + 1
     assert (m, n, k, gs) in cuda_kernels.GROUPED_QMV.shapes
-    _close(got, quantized_matmul_grouped_ref(x, gp["qg"], gp["sg"], gp["bg"]))
+    _close(got, quantized_matmul_grouped_ref(x, qg, sg, bg))
+
+
+@pytest.mark.cuda
+def test_kernel_a_takes_unaligned_x_through_the_simple_kernel_on_cuda(
+        cuda_device):
+    _, qg, sg, bg = _card_grouped(cuda_device, 4, 1, 1024, 2048, 64)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    flat = torch.randn((3 * 2048 + 1,), generator=g, device=cuda_device)
+    x = flat.to(torch.bfloat16)[1:].view(3, 2048)  # 2 bytes past alignment
+    assert x.data_ptr() % 16 != 0
+    assert not plan_kernel_a(3, 1024, 2048, 64, H100_SMS, aligned=False).ring
+    _close(grouped_qmv_cuda(x, qg, sg, bg),
+           quantized_matmul_grouped_ref(x, qg, sg, bg))
+
+
+@pytest.mark.cuda
+def test_kernel_a_repeats_bit_for_bit_between_kernel_b_launches_on_cuda(
+        cuda_device):
+    """Split-K partials are summed in split order whichever block finishes
+    last; kernels A and B share one stream's workspace and counters, and A,
+    B, A on that stream give A's bits again."""
+    cases = [(1, 6144, 2048, 64), (8, 2048, 6144, 64), (64, 2051, 2048, 64)]
+    assert all(plan_kernel_a(*c, H100_SMS).k_splits > 1 for c in cases)
+    g, q, s, b = _card_weights(cuda_device, 6, 6144, 2048, 64)
+    xb = torch.randn((128, 2048), generator=g, device=cuda_device)
+    b_in = (xb.to(torch.bfloat16), q, s, b)
+    for seed, case in enumerate(cases):
+        a_in = _card_grouped(cuda_device, 20 + seed, *case)
+        first = grouped_qmv_cuda(*a_in)
+        assert torch.equal(first, grouped_qmv_cuda(*a_in))
+        big = quantized_matmul(*b_in)
+        assert torch.equal(first, grouped_qmv_cuda(*a_in))
+        _close(first, quantized_matmul_grouped_ref(*a_in))
+        _close(big, quantized_matmul_ref(*b_in))
 
 
 @pytest.mark.cuda
