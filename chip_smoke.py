@@ -3,7 +3,8 @@
 NVIDIA GPU: the quickest proof that the port builds, is right, and runs.
 
     python3 chip_smoke.py            # all phases, one GPU
-    python3 chip_smoke.py --profile  # all phases, then a traced run
+    python3 chip_smoke.py --profile  # all phases, then traced runs of the
+                                     # cb0 and the feedback flagship paths
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -11,8 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    for sm_90a (one nvcc per source, started together) into build/kernels/,
    printing ptxas' registers and spills; no kernel may spill;
 2. hold each kernel against its plain PyTorch version on the card at every
-   flagship (N, K) at the row counts the main path plans for it (M=1, the
-   decode chunks, the prefill rows) plus one tiny shape, in bf16, with
+   flagship (N, K) at the row counts the main paths plan for it (M=1, the
+   decode chunks, the prefill rows, the feedback predictor's 2-row first
+   pass) plus one tiny shape, in bf16, with
    max|kernel - plain| <= 1e-2 * max|plain|; each kernel twice, its two
    outputs bit-identical (split-K reduced in a fixed order), with its
    launch plan's path, rows per block, splits and blocks; time kernel,
@@ -21,15 +23,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operations over 989 TFLOP/s, whichever is larger); then one
    ``frame_sum`` line: each kernel's time, bound and library time summed
    over a talker frame at M=1 (28 layers x 7 linears, plus the head);
+   then each kernel's float32 instance the same way at M=1 6144x2048 and
+   at the tiny shape, with max|kernel - plain| <= 1e-5 * max|plain| and
+   its bound at the float32 CUDA-core rate (67 TFLOP/s);
 3. a tiny model on the card (kernels) against the same model on the CPU
-   (plain versions): prefill logits within tolerance, greedy codes printed;
+   (plain versions), under both int8 layouts: in bf16, prefill logits
+   within tolerance and the greedy codes' agreement printed; in float32,
+   the greedy codes must equal the CPU's frame for frame;
 4. the main path at the flagship's full width, grouped int8 layout:
    load_model("synthetic:flagship") -> generate_audio -> audio_000.wav,
-   checked (mono 16-bit 24 kHz, frames x 2000 samples, finite, not
+   checked (mono 16-bit 24 kHz, frames x hop samples, finite, not
    silent) with kernel A's launches counted;
 5. the same under QWEN3_TTS_INT8_LAYOUT=rowmajor, kernel B's launches
    counted;
-6. every (M, N, K, gs) a kernel ran on the main path that phase 2 did not
+6. two more flagship-width paths under the grouped layout:
+   load_model("synthetic:flagship-code2wav") (the code2wav decoder) and
+   Qwen3TTSModel.synthetic(configs.flagship_feedback_code2wav()) (the
+   published residual_sum protocol driving it, the shape of a real
+   checkpoint), each WAV frames x hop - the decoder's startup samples
+   long;
+7. every (M, N, K, gs) a kernel ran on the main paths that phase 2 did not
    cover is held against its plain version the same way (the wrappers
    record the shapes of their launches).
 
@@ -61,14 +74,25 @@ PKG = ROOT / "src" / "qwen3_tts_tpu_torch"
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_F32_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 TOL = 1e-2                    # max|kernel - plain| <= TOL * max|plain| (bf16)
+# float32 instances: the same f32 products summed in another order than the
+# plain version's; 1e-5 of the output's range is ~100 f32 ulps of it
+TOL_F32 = 1e-5
 
-# (N, K) of every int8 linear on the flagship main path
+# the feedback code predictor at talker width (hidden_token layout, no
+# in_proj): qkv, o, gate_up, down; it runs one frame at a time, 2 rows in
+# its first pass (hidden, cb0 token) and 1 after
+FEEDBACK_CP_NK = ((3072, 2048), (2048, 1024), (6144, 2048), (2048, 3072))
+FEEDBACK_CP_ROWS = (1, 2)
+# (N, K) of every int8 linear on the flagship main paths
 # talker: q, k/v, o, gate/up, down, codec head; code predictor (fused
-# decode layout): in_proj, qkv, o, gate_up, down
+# decode layout): in_proj, qkv, o, gate_up, down; then the feedback code
+# predictor's shapes that the talker does not have
 FLAGSHIP_NK = (
     (2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144), (2051, 2048),
     (3072, 1024), (1024, 1024), (6144, 1024), (1024, 3072),
+    (3072, 2048), (2048, 1024), (2048, 3072),
 )
 GS = 64
 TINY = (67, 64, 16)  # (N, K, gs)
@@ -109,12 +133,16 @@ def device_time_ms(torch, fn, arg_sets, batches: int = 5, per_batch: int = 10):
     return statistics.median(s.elapsed_time(e) / per_batch for s, e in pairs)
 
 
-def bound_ms(m: int, n: int, k: int, gs: int) -> tuple[float, str]:
+def bound_ms(m: int, n: int, k: int, gs: int,
+             f32: bool = False) -> tuple[float, str]:
+    """x and out in bf16 (or f32), int8 codes, f32 scales and biases read
+    once; products at the dense bf16 rate (or the float32 one)."""
     g = k // gs
-    nbytes = m * k * 2 + n * k + 2 * g * n * 4 + m * n * 2
+    act = 4 if f32 else 2
+    nbytes = m * k * act + n * k + 2 * g * n * 4 + m * n * act
     ops = 2 * m * n * k + 2 * m * g * n
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = ops / (PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -148,10 +176,11 @@ def _weights(torch, n, k, gs, gen, dev):
 
 def planned_cases() -> list[tuple]:
     """(kernel, M, N, K, gs) for the kernel phase: every flagship (N, K) at
-    the rows the main path gives each kernel -- M=1 (talker decode), the
-    code predictor's decode chunks of a MAIN_FRAMES-frame utterance, and
-    the prefill rows (A up to its 64-row limit, B the 128-row prompt
-    bucket) -- plus one tiny shape with a ragged N and gs=16."""
+    the rows the main paths give each kernel -- M=1 (talker decode), the
+    cb0 code predictor's decode chunks of a MAIN_FRAMES-frame utterance,
+    and the prefill rows (A up to its 64-row limit, B the 128-row prompt
+    bucket) -- the feedback predictor's 2-row first pass on kernel A, and
+    one tiny shape with a ragged N and gs=16."""
     from qwen3_tts_tpu_torch.engine import configs
     from qwen3_tts_tpu_torch.runtime.generate import (
         chunk_plan, default_chunk_schedule,
@@ -163,14 +192,26 @@ def planned_cases() -> list[tuple]:
             "dequant_matmul": {1, 32, 128} | chunks}
     cases = [(name, m, n, k, GS) for n, k in FLAGSHIP_NK
              for name, ms in rows.items() for m in sorted(ms)]
+    cases += [("grouped_qmv", m, n, k, GS) for n, k in FEEDBACK_CP_NK
+              for m in FEEDBACK_CP_ROWS if m not in rows["grouped_qmv"]]
     n, k, gs = TINY
     return cases + [("grouped_qmv", 3, n, k, gs), ("dequant_matmul", 3, n, k, gs)]
 
 
-def phase_kernels(torch, cases, checked: dict, source: str) -> None:
+def f32_cases() -> list[tuple]:
+    """(kernel, M, N, K, gs) of each kernel's float32 instance: a talker
+    gate/up projection at M=1 and the tiny ragged shape."""
+    n, k, gs = TINY
+    return [(name, m, nn, kk, g) for name in ("grouped_qmv", "dequant_matmul")
+            for m, nn, kk, g in ((*REPRESENTATIVE, GS), (3, n, k, gs))]
+
+
+def phase_kernels(torch, cases, checked: dict, source: str,
+                  f32: bool = False) -> None:
     """Hold each case's kernel against its plain version on the card and
     time kernel, plain version and library yardstick; rows go into
-    ``checked`` keyed by case. ``source`` says where the shapes came from."""
+    ``checked`` keyed by case. ``source`` says where the shapes came from;
+    ``f32``: float32 x and out (the kernels' float32 instances)."""
     from qwen3_tts_tpu_torch.ops.dequant_matmul import (
         dequant_matmul_cuda, dense_matmul, plan_kernel_b, quantized_matmul_ref,
     )
@@ -194,9 +235,10 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
         "dequant_matmul": (dequant_matmul_cuda, quantized_matmul_ref,
                            lib_rowmajor),
     }
+    dtype, tol = (torch.float32, TOL_F32) if f32 else (torch.bfloat16, TOL)
     for case in cases:
         name, m, n, k, gs = case
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         per_copy = n * k + 2 * (k // gs) * n * 4
         copies = max(1, min(32, math.ceil(128e6 / per_copy)))
         sets = []
@@ -216,27 +258,32 @@ def phase_kernels(torch, cases, checked: dict, source: str) -> None:
                  f"{tuple(want.shape)}")
         err = (got.float() - want.float()).abs().max().item()
         scale_ref = want.float().abs().max().item()
-        if not math.isfinite(err) or err > TOL * scale_ref:
-            fail(f"{name} M={m} N={n} K={k} gs={gs}: max|kernel-plain| {err} "
-                 f"> {TOL} * {scale_ref}")
+        if got.dtype != dtype or not math.isfinite(err) \
+                or err > tol * scale_ref:
+            fail(f"{name} {dtype} M={m} N={n} K={k} gs={gs}: max|kernel-plain| "
+                 f"{err} > {tol} * {scale_ref} (or out dtype {got.dtype})")
         again = kern(*sets[0])
         if not torch.equal(got, again):
-            fail(f"{name} M={m} N={n} K={k} gs={gs}: two launches on the "
-                 "same inputs differ")
-        if name == "dequant_matmul":
+            fail(f"{name} {dtype} M={m} N={n} K={k} gs={gs}: two launches on "
+                 "the same inputs differ")
+        if name == "dequant_matmul" and f32:
+            extra = {"path": "f32"}  # the CUDA-core instance takes no plan
+        elif name == "dequant_matmul":
             plan = plan_kernel_b(m, n, k, gs, sm_count)
             extra = {"ring": plan.ring, "m_frags": plan.m_frags,
                      "rows": plan.tile_m}
         else:
-            plan = plan_kernel_a(m, n, k, gs, sm_count)
+            plan = plan_kernel_a(m, n, k, gs, sm_count, bf16=not f32)
             extra = {"ring": plan.ring, "ragged": plan.ragged,
                      "rows": plan.rows}
-        extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
+        if "path" not in extra:
+            extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
         t_kern = device_time_ms(torch, kern, sets)
         t_plain = device_time_ms(torch, plain, sets)
         t_lib = device_time_ms(torch, lib, sets)
-        t_bound, bound_by = bound_ms(m, n, k, gs)
+        t_bound, bound_by = bound_ms(m, n, k, gs, f32)
         row = {"phase": "kernels", "shapes_from": source, "kernel": name,
+               "dtype": str(dtype).replace("torch.", ""),
                "M": m, "N": n, "K": k, "gs": gs, "max_abs_err": err,
                "max_abs_plain": scale_ref, "kernel_ms": t_kern,
                "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
@@ -283,6 +330,8 @@ def main() -> None:
     checked: dict = {}
     phase_kernels(torch, planned_cases(), checked, "plan")
     phase_frame_sum(checked)
+    checked_f32: dict = {}
+    phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
     launches, shapes = phase_main_paths(torch)
     # every shape the main path ran is held against its plain version: a
     # shape the plan missed is checked now
@@ -294,7 +343,8 @@ def main() -> None:
          "missed_by_plan": [list(c) for c in missing]})
     phase_kernels(torch, missing, checked, "main_path")
     if args.profile:
-        phase_profile(torch)
+        for label in ("synthetic:flagship", "flagship_feedback_code2wav"):
+            phase_profile(torch, label)
 
     replaces = {
         "grouped_qmv": "src/qwen3_tts_tpu/ops/grouped_qmv.py:160",
@@ -303,6 +353,7 @@ def main() -> None:
     kernels = []
     for name in ("grouped_qmv", "dequant_matmul"):
         r = checked[(name, *REPRESENTATIVE, GS)]
+        r32 = checked_f32[(name, *REPRESENTATIVE, GS)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/qwen3_tts_tpu_torch/csrc/{name}.cu",
@@ -311,6 +362,9 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"M={r['M']},N={r['N']},K={r['K']},gs={r['gs']}",
+            "f32": {key: r32[key] for key in (
+                "kernel_ms", "max_abs_err", "plain_ms", "bound_ms",
+                "library_ms")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
@@ -333,67 +387,109 @@ TEXT = ("The quick brown fox jumps over the lazy dog. "
 def phase_reference(torch) -> None:
     """A tiny model (numpy-seeded weights) on the card, whose int8 linears
     run on the kernels, against the same weights on the CPU, whose linears
-    run on the plain versions: prefill logits within tolerance under both
-    int8 layouts; the greedy codes' agreement is printed."""
+    run on the plain versions, under both int8 layouts. In bf16: prefill
+    logits within 5e-2 of their range, the greedy codes' agreement
+    printed. In float32 (the kernels' float32 instances): prefill logits
+    within 1e-3 of their range, and the greedy codes must equal the CPU's
+    frame for frame."""
+    import dataclasses
+
     from qwen3_tts_tpu_torch.engine import configs
     from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
     from qwen3_tts_tpu_torch.engine.weights import tree_to
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
     from qwen3_tts_tpu_torch.runtime.generate import Generator
     from qwen3_tts_tpu_torch.runtime.prompts import build_prompt
     from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
 
-    cfg = configs.tiny(quant=True)
-    host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
-    trees = (host.params, host.cp_params, host.codec_params)
-    prompt = build_prompt(host.tokenizer, cfg.mode, "Hello there.",
-                          voice="ryan", speakers=cfg.speakers)
     greedy = SamplingConfig(greedy=True)
-    for layout in ("grouped", "rowmajor"):
-        os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
-        gens = {}
-        for dev in ("cpu", "cuda"):
-            p, cp, codec = (tree_to(t, dev) for t in trees)
-            gens[dev] = Generator(cfg=cfg, params=p, cp_params=cp,
-                                  codec_params=codec, sampling=greedy)
-        logits = {}
-        for dev, gen in gens.items():
-            emb, pad = gen._assemble_cb0(prompt)
-            ck, cv = gen._alloc_cache()
-            _, lg, _, _ = gen._prefill_fn()(gen.params, emb, pad, ck, cv)
-            logits[dev] = lg.float().cpu()
-        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-        ref = logits["cpu"].abs().max().item()
-        if not math.isfinite(err) or err > 5e-2 * ref:
-            fail(f"tiny prefill logits, {layout}: card vs CPU max err {err} "
-                 f"> 5e-2 * {ref}")
-        codes = {dev: gen.synthesize(prompt, max_frames=16,
-                                     collect_codes=True).codes
-                 for dev, gen in gens.items()}
-        same = codes["cuda"].shape == codes["cpu"].shape
-        lead = 0
-        if same:
-            diff = (codes["cuda"] != codes["cpu"]).any(axis=0)
-            lead = int(diff.argmax()) if diff.any() else diff.size
-        log({"phase": "reference", "layout": layout,
-             "prefill_logits_max_err": err, "prefill_logits_max": ref,
-             "greedy_frames_equal_before_first_difference": lead,
-             "frames": int(codes["cpu"].shape[1])})
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
+        cfg = dataclasses.replace(configs.tiny(quant=True), dtype=dtype)
+        host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+        trees = (host.params, host.cp_params, host.codec_params)
+        prompt = build_prompt(host.tokenizer, cfg.mode, "Hello there.",
+                              voice="ryan", speakers=cfg.speakers)
+        for layout, kernel in (("grouped", cuda_kernels.GROUPED_QMV),
+                               ("rowmajor", cuda_kernels.DEQUANT_MATMUL)):
+            os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
+            gens = {}
+            for dev in ("cpu", "cuda"):
+                p, cp, codec = (tree_to(t, dev) for t in trees)
+                gens[dev] = Generator(cfg=cfg, params=p, cp_params=cp,
+                                      codec_params=codec, sampling=greedy)
+            logits = {}
+            for dev, gen in gens.items():
+                emb, pad = gen._assemble_cb0(prompt)
+                ck, cv = gen._alloc_cache()
+                _, lg, _, _ = gen._prefill_fn()(gen.params, emb, pad, ck, cv)
+                logits[dev] = lg.float().cpu()
+            err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+            ref = logits["cpu"].abs().max().item()
+            if not math.isfinite(err) or err > tol * ref:
+                fail(f"tiny prefill logits, {dtype}, {layout}: card vs CPU "
+                     f"max err {err} > {tol} * {ref}")
+            before = kernel.launches
+            codes = {dev: gen.synthesize(prompt, max_frames=16,
+                                         collect_codes=True).codes
+                     for dev, gen in gens.items()}
+            if kernel.launches == before:
+                fail(f"tiny {dtype}, {layout}: {kernel.name} never launched")
+            same = codes["cuda"].shape == codes["cpu"].shape
+            lead = 0
+            if same:
+                diff = (codes["cuda"] != codes["cpu"]).any(axis=0)
+                lead = int(diff.argmax()) if diff.any() else diff.size
+            log({"phase": "reference", "dtype": dtype, "layout": layout,
+                 "prefill_logits_max_err": err, "prefill_logits_max": ref,
+                 "greedy_frames_equal_before_first_difference": lead,
+                 "frames": int(codes["cpu"].shape[1]),
+                 "frames_card": int(codes["cuda"].shape[1])})
+            if dtype == "float32" and not (
+                    same and lead == codes["cpu"].shape[1]):
+                fail(f"tiny float32, {layout}: the card's greedy codes differ "
+                     f"from the CPU's (equal for {lead} frames)")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
 
 
-def phase_main_path(torch, layout: str, kernel: str) -> tuple[int, dict]:
-    """load_model("synthetic:flagship") -> generate_audio at full width
-    under one int8 layout; returns the launches of ``kernel`` in the
-    measured run and the (M, N, K, gs) shapes each kernel ran there."""
-    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+# the main paths: (model, int8 layout, the kernel that layout runs, frames
+# of the measured run); a "synthetic:" model comes from load_model, any
+# other name is a preset of engine/configs.py given to
+# Qwen3TTSModel.synthetic (the feedback presets have no "synthetic:" name)
+MAIN_PATHS = (
+    ("synthetic:flagship", "grouped", "grouped_qmv", MAIN_FRAMES),
+    ("synthetic:flagship", "rowmajor", "dequant_matmul", MAIN_FRAMES),
+    ("synthetic:flagship-code2wav", "grouped", "grouped_qmv", MAIN_FRAMES),
+    ("flagship_feedback_code2wav", "grouped", "grouped_qmv", MAIN_FRAMES),
+)
+
+
+def _build(label: str):
+    from qwen3_tts_tpu_torch.engine import configs, load_model
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+
+    if label.startswith("synthetic:"):
+        return load_model(label, device="cuda", seed=0)
+    return Qwen3TTSModel.synthetic(getattr(configs, label)(), seed=0,
+                                   device="cuda")
+
+
+def phase_main_path(torch, label: str, layout: str, kernel: str,
+                    frames: int) -> tuple[dict, dict]:
+    """The model ``label`` at full width -> generate_audio under one int8
+    layout; returns every kernel's launches in the measured run and the
+    (M, N, K, gs) shapes each ran there."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import generate_audio
     from qwen3_tts_tpu_torch.ops import cuda_kernels
 
     os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = load_model("synthetic:flagship", device="cuda", seed=0)
+    model = _build(label)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    where = f"{label}, {layout}"
     with tempfile.TemporaryDirectory() as out:
         # first call: library handles, allocator, first launches
         warm = generate_audio(model=model, text=TEXT, voice="ryan",
@@ -401,51 +497,58 @@ def phase_main_path(torch, layout: str, kernel: str) -> tuple[int, dict]:
         torch.cuda.synchronize()
         cuda_kernels.reset_launch_counts()
         m = generate_audio(model=model, text=TEXT, voice="ryan",
-                           output_path=out, max_frames=MAIN_FRAMES, seed=0)
+                           output_path=out, max_frames=frames, seed=0)
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
         shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
         path = os.path.join(out, "audio_000.wav")
         if not os.path.exists(path):
-            fail(f"{layout}: {path} was not written")
+            fail(f"{where}: {path} was not written")
         with wave.open(path, "rb") as w:
             fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
             n = w.getnframes()
-            import numpy as np
-
             pcm = np.frombuffer(w.readframes(n), dtype="<i2")
-    hop = model.cfg.codec.hop
+    cfg = model.cfg
+    hop = cfg.codec.hop
+    # a code2wav stream's first samples are the decoder's run-in, dropped
+    skip = cfg.code2wav.startup_samples if cfg.codec_arch == "code2wav" else 0
     if fmt != (1, 2, 24000):
-        fail(f"{layout}: wav format {fmt}, expected mono 16-bit 24 kHz")
-    if m["frames"] < 1 or n != m["frames"] * hop:
-        fail(f"{layout}: {n} samples for {m['frames']} frames (hop {hop})")
+        fail(f"{where}: wav format {fmt}, expected mono 16-bit 24 kHz")
+    if m["frames"] < 1 or n != m["frames"] * hop - skip:
+        fail(f"{where}: {n} samples for {m['frames']} frames (hop {hop}, "
+             f"startup {skip})")
     if not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
-        fail(f"{layout}: the waveform is silent or not finite")
+        fail(f"{where}: the waveform is silent or not finite")
     if counts[kernel] == 0:
-        fail(f"{layout}: kernel {kernel} never launched on the main path")
-    log({"phase": "main_path", "layout": layout, "model": "synthetic:flagship",
+        fail(f"{where}: kernel {kernel} never launched on the main path")
+    log({"phase": "main_path", "layout": layout, "model": label,
+         "protocol": cfg.talker.feedback, "codec": cfg.codec_arch,
          "frames": m["frames"], "audio_s": m["audio_s"], "wall_s": m["wall_s"],
          "rtf": m["rtf"], "ttfa_s": m["ttfa_s"], "load_s": load_s,
          "warmup_wall_s": warm["wall_s"], "samples": n,
+         "startup_samples_dropped": skip,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
          "launches": counts,
+         "launches_per_frame": {name: c / m["frames"]
+                                for name, c in counts.items()},
          "shapes": {name: sorted(run) for name, run in shapes.items()}})
     del model
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
-    return counts[kernel], shapes
+    return counts, shapes
 
 
-def phase_profile(torch) -> None:
-    """Where the main path's time goes (grouped layout, 64 frames): one
-    unprofiled run, then one under torch.profiler; the card's busy share is
-    the profiled kernels' device time over the unprofiled wall time."""
+def phase_profile(torch, label: str) -> None:
+    """Where the main path's time goes (the model ``label``, grouped layout,
+    64 frames): one unprofiled run, then one under torch.profiler; the
+    card's busy share is the profiled kernels' device time over the
+    unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+    from qwen3_tts_tpu_torch.engine import generate_audio
 
     os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
-    model = load_model("synthetic:flagship", device="cuda", seed=0)
+    model = _build(label)
     with tempfile.TemporaryDirectory() as out:
         kw = dict(model=model, text=TEXT, voice="ryan", output_path=out)
         generate_audio(max_frames=16, seed=1, **kw)
@@ -460,7 +563,8 @@ def phase_profile(torch) -> None:
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     launches = sum(e.count for e in kernels)
-    log({"phase": "profile", "layout": "grouped", "frames": plain["frames"],
+    log({"phase": "profile", "model": label, "layout": "grouped",
+         "frames": plain["frames"],
          "wall_s": plain["wall_s"], "wall_s_traced": traced["wall_s"],
          "device_kernel_s": device_s if kernels else "not measured",
          "device_busy_share": device_s / plain["wall_s"] if kernels
@@ -475,19 +579,18 @@ def phase_profile(torch) -> None:
 
 
 def phase_main_paths(torch) -> tuple[dict, dict]:
-    """The reference phase, then the main path under each layout; returns
-    each layout's kernel's launches on its main path, and the shapes each
-    kernel ran on either."""
+    """The reference phase, then every main path; returns each kernel's
+    launches on the flagship's main path under its layout (the first path
+    that runs it), and the shapes each kernel ran on any path."""
     phase_reference(torch)
-    runs = {
-        "grouped_qmv": phase_main_path(torch, "grouped", "grouped_qmv"),
-        "dequant_matmul": phase_main_path(torch, "rowmajor", "dequant_matmul"),
-    }
-    shapes = {name: set() for name in runs}
-    for _, run in runs.values():
-        for name, ran in run.items():
-            shapes[name] |= ran
-    return {name: r[0] for name, r in runs.items()}, shapes
+    launches: dict = {}
+    shapes: dict = {}
+    for label, layout, kernel, frames in MAIN_PATHS:
+        counts, ran = phase_main_path(torch, label, layout, kernel, frames)
+        launches.setdefault(kernel, counts[kernel])
+        for name, run in ran.items():
+            shapes.setdefault(name, set()).update(run)
+    return launches, shapes
 
 
 if __name__ == "__main__":

@@ -63,6 +63,12 @@
 // output tile (TM = 16 at M <= 16, else 64), stages x and the dequantized
 // weight in shared memory and multiplies with wmma, walking all of K. Edges
 // in M, N and K are masked there. The host picks the path by shape.
+//
+// The float32 instance (entry dequant_matmul_f32, for float32 models: the
+// reference keeps the dequantized weight in x.dtype) cannot use the bf16
+// tensor-core fragments, and takes no TF32: a small CUDA-core kernel stages
+// x and the f32 weight in shared memory and sums f32 FMAs in k order. Its
+// speed is not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -560,6 +566,97 @@ cudaError_t launch_simple(const __nv_bfloat16* x, const uint8_t* q, const float*
   return cudaGetLastError();
 }
 
+// ----------------------------------------------------------------- f32 path
+
+constexpr int kF32TK = 64;                       // K of one staged tile
+constexpr int kF32Threads = 256;
+constexpr int kF32RowGroups = kF32Threads / kTN;  // 4: a thread's rows step by it
+
+// One block owns a TM x 64 output tile and walks all of K in 64-wide tiles:
+// x [TM][64] and the weight [64][64], dequantized in f32 as the ring path
+// forms it (product, then sum, each rounded), staged in shared memory. A
+// thread owns one output column and the rows rg, rg + 4, ...; each output
+// is one thread's f32 FMAs in k order, so repeats are bit-identical. A
+// thread issues all its loads of a tile before it uses any, so they are in
+// flight together (loaded one after another, a tile cost a memory round
+// trip per element).
+template <int TM>
+__global__ void __launch_bounds__(kF32Threads) f32_kernel(
+    const float* __restrict__ x, const uint8_t* __restrict__ q,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ out, int M, int K, int N, int gs) {
+  constexpr int kRowsPer = TM / kF32RowGroups;
+  constexpr int kXPer = TM * kF32TK / kF32Threads;   // x elements a thread stages
+  constexpr int kWPer = kTN * kF32TK / kF32Threads;  // weights a thread stages
+  __shared__ float xs[TM][kF32TK];
+  __shared__ float wt[kTN][kF32TK + 1];  // odd stride: a warp's columns in 32 banks
+
+  const int tid = threadIdx.x;
+  const int col = tid % kTN;
+  const int rg = tid / kTN;  // one per warp pair: x reads are broadcasts
+  const int m0 = blockIdx.y * TM;
+  const int n0 = blockIdx.x * kTN;
+  const int G = K / gs;
+
+  float acc[kRowsPer];
+#pragma unroll
+  for (int j = 0; j < kRowsPer; ++j) acc[j] = 0.f;
+
+  // a thread's elements of a tile: index tid + j * kF32Threads, at row
+  // r0 + j * (kF32Threads / kF32TK) and column c (the same for every j)
+  const int c = tid % kF32TK;
+  const int r0 = tid / kF32TK;
+  constexpr int kRowStep = kF32Threads / kF32TK;
+  for (int k0 = 0; k0 < K; k0 += kF32TK) {
+    const int k = k0 + c;
+    float xv[kXPer];
+#pragma unroll
+    for (int j = 0; j < kXPer; ++j) {
+      const int m = m0 + r0 + j * kRowStep;
+      xv[j] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
+    }
+    uint8_t qv[kWPer];
+    float sv[kWPer], bv[kWPer];
+#pragma unroll
+    for (int j = 0; j < kWPer; ++j) {
+      const int n = n0 + r0 + j * kRowStep;
+      const bool in = n < N && k < K;
+      const size_t sb = in ? (size_t)n * G + k / gs : 0;
+      qv[j] = in ? q[(size_t)n * K + k] : 0;
+      sv[j] = in ? scale[sb] : 0.f;
+      bv[j] = in ? bias[sb] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kXPer; ++j) xs[r0 + j * kRowStep][c] = xv[j];
+#pragma unroll
+    for (int j = 0; j < kWPer; ++j)
+      wt[r0 + j * kRowStep][c] = __fadd_rn(__fmul_rn(float(qv[j]), sv[j]), bv[j]);
+    __syncthreads();
+#pragma unroll 16
+    for (int kk = 0; kk < kF32TK; ++kk) {
+      const float w = wt[col][kk];
+#pragma unroll
+      for (int j = 0; j < kRowsPer; ++j)
+        acc[j] = fmaf(xs[rg + j * kF32RowGroups][kk], w, acc[j]);
+    }
+    __syncthreads();
+  }
+  const int n = n0 + col;
+#pragma unroll
+  for (int j = 0; j < kRowsPer; ++j) {
+    const int m = m0 + rg + j * kF32RowGroups;
+    if (m < M && n < N) out[(size_t)m * N + n] = acc[j];
+  }
+}
+
+template <int TM>
+cudaError_t launch_f32(const float* x, const uint8_t* q, const float* s, const float* b,
+                       float* out, int M, int K, int N, int gs, cudaStream_t stream) {
+  const dim3 grid((N + kTN - 1) / kTN, (M + TM - 1) / TM);
+  f32_kernel<TM><<<grid, kF32Threads, 0, stream>>>(x, q, s, b, out, M, K, N, gs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of kernel B as planned by ops/dequant_matmul.py::plan_kernel_b:
@@ -598,4 +695,23 @@ extern "C" int dequant_matmul_bf16(const void* x, const void* q,
   RING_CASE(16)
 #undef RING_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel B at float32 x and out (the f32 instance), with the bf16 entry's
+// arguments; the plan's ints, the workspace and the counters are unused:
+// 4 rows of M a block at M <= 4, else 16.
+extern "C" int dequant_matmul_f32(const void* x, const void* q,
+                                  const void* scale, const void* bias,
+                                  void* out, void* ws, void* counters, int M,
+                                  int K, int N, int gs, int m_frags,
+                                  int k_splits, int k_unit, int sb_groups,
+                                  void* stream) {
+  auto* xp = static_cast<const float*>(x);
+  auto* qp = static_cast<const uint8_t*>(q);
+  auto* sp = static_cast<const float*>(scale);
+  auto* bp = static_cast<const float*>(bias);
+  auto* op = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(M <= 4 ? launch_f32<4>(xp, qp, sp, bp, op, M, K, N, gs, st)
+                                 : launch_f32<16>(xp, qp, sp, bp, op, M, K, N, gs, st));
 }

@@ -54,11 +54,16 @@
 // - Programmatic dependent launch, as kernel B: blocks are scheduled while
 //   the kernel before finishes, and wait for it before touching memory.
 //
-// The simple path (this kernel's first design, unchanged) takes every
-// other shape: K not a multiple of 64, gs not in {16, 32, 64}, unaligned
-// x. One block owns 32 output columns and 1 or 8 rows of M; 8 threads
-// across N (4 columns each) times 32 lanes over the groups of K, summed
-// through shared memory in a fixed order.
+// The simple path (this kernel's first design) takes every other shape: K
+// not a multiple of 64, gs not in {16, 32, 64}, unaligned x. One block owns
+// 32 output columns and 1 or 8 rows of M; 8 threads across N (4 columns
+// each) times 32 lanes over the groups of K, summed through shared memory
+// in a fixed order.
+//
+// The float32 instance (entry qmv_grouped_f32, for float32 models: the
+// reference computes in x.dtype) is the simple path with f32 x and out:
+// the same f32 products and sums, no rounding at the end. Every f32 shape
+// takes it; its speed is not tuned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -491,12 +496,18 @@ constexpr int kCols = 32;                  // output columns per block
 constexpr int kQuads = kCols / 4;          // threads across N, 4 columns each
 constexpr int kLanes = 32;                 // threads across the groups of K
 constexpr int kThreads = kQuads * kLanes;  // 256
-constexpr int kChunk = 2048;               // x elements per row staged per pass
+constexpr int kChunkBytes = 4096;          // x bytes per row staged per pass
 constexpr int kMaxRows = 8;                // MT of the multi-row variant
+// x elements of a row staged per pass: 2048 bf16 or 1024 f32 (the largest
+// group the simple path takes)
+template <typename T>
+__host__ __device__ constexpr int chunk_of() {
+  return kChunkBytes / static_cast<int>(sizeof(T));
+}
 // one pad element per staged group (gs >= 8) keeps the 4 lanes of a warp
-// off one bank, so a pass holds at most kChunk * 9 / 8 elements per row;
+// off one bank, so a pass holds at most chunk * 9 / 8 elements per row;
 // the lane-sum buffer reuses the same bytes after the last pass
-constexpr int kStageBytes = kMaxRows * (kChunk + kChunk / 8) * 2;
+constexpr int kStageBytes = kMaxRows * (kChunkBytes + kChunkBytes / 8);
 constexpr int kReduceBytes = kLanes * kMaxRows * kCols * 4;
 constexpr int kSmemBytes =
     kStageBytes > kReduceBytes ? kStageBytes : kReduceBytes;
@@ -517,15 +528,25 @@ __device__ __forceinline__ unsigned load_codes(const uint8_t* __restrict__ row,
   return v;
 }
 
+// The activation type T of the simple path: bf16, or f32 (the float32
+// instance; its products, sums and output stay f32).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
 // (a minimum of 1 block per SM: with ptxas' default cap of 128 registers
 // the 8-row instance spilled)
-template <int MT, bool VEC>
+template <typename T, int MT, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qg,
+    const T* __restrict__ x, const uint8_t* __restrict__ qg,
     const float* __restrict__ sg, const float* __restrict__ bg,
-    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs) {
+    T* __restrict__ out, int M, int K, int N, int gs) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* xs = reinterpret_cast<T*>(smem);
 
   const int tid = threadIdx.x;
   const int quad = tid % kQuads;
@@ -533,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
   const int n0 = blockIdx.x * kCols + quad * 4;
   const int m0 = blockIdx.y * MT;
   const int G = K / gs;
-  const int gpp = max(1, kChunk / gs);  // groups staged per pass
+  const int gpp = max(1, chunk_of<T>() / gs);  // groups staged per pass
   const int gstride = gs + (gs >= 8 ? 1 : 0);
   const int rs = gpp * gstride;         // staged row stride (elements)
 
@@ -550,7 +571,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
     for (int i = tid; i < MT * span; i += kThreads) {
       const int m = i / span;
       const int kk = i - m * span;
-      __nv_bfloat16 v = __float2bfloat16(0.f);
+      T v = from_f32<T>(0.f);
       if (m0 + m < M) v = x[(size_t)(m0 + m) * K + (size_t)g0 * gs + kk];
       xs[m * rs + (kk / gs) * gstride + kk % gs] = v;
     }
@@ -559,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
     for (int gl = lane; gl < ng; gl += kLanes) {
       const int g = g0 + gl;
       const uint8_t* qrow = qg + (size_t)g * gs * N;
-      const __nv_bfloat16* xg = xs + gl * gstride;
+      const T* xg = xs + gl * gstride;
       float part[MT][4];
       float xsum[MT];
 #pragma unroll
@@ -580,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
           if (j0 + u >= gs) break;
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            const float xv = __bfloat162float(xg[m * rs + j0 + u]);
+            const float xv = to_f32(xg[m * rs + j0 + u]);
             xsum[m] += xv;
 #pragma unroll
             for (int c = 0; c < 4; ++c)
@@ -621,22 +642,37 @@ __global__ void __launch_bounds__(kThreads, 1) qmv_grouped_kernel(
     for (int l = 0; l < kLanes; ++l) sum += red[(l * MT + m) * kCols + col];
     const int n = blockIdx.x * kCols + col;
     if (m0 + m < M && n < N)
-      out[(size_t)(m0 + m) * N + n] = __float2bfloat16(sum);
+      out[(size_t)(m0 + m) * N + n] = from_f32<T>(sum);
   }
 }
 
-template <int MT>
-cudaError_t launch_simple(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
-                          const float* bg, __nv_bfloat16* out, int M, int K, int N,
+template <typename T, int MT>
+cudaError_t launch_simple(const T* x, const uint8_t* qg, const float* sg,
+                          const float* bg, T* out, int M, int K, int N,
                           int gs, cudaStream_t stream) {
+  if (gs > chunk_of<T>()) return cudaErrorInvalidValue;  // a group per pass at most
   const dim3 grid((N + kCols - 1) / kCols, (M + MT - 1) / MT);
   if (N % 4 == 0 && reinterpret_cast<uintptr_t>(qg) % 4 == 0)
-    qmv_grouped_kernel<MT, true><<<grid, kThreads, 0, stream>>>(
+    qmv_grouped_kernel<T, MT, true><<<grid, kThreads, 0, stream>>>(
         x, qg, sg, bg, out, M, K, N, gs);
   else
-    qmv_grouped_kernel<MT, false><<<grid, kThreads, 0, stream>>>(
+    qmv_grouped_kernel<T, MT, false><<<grid, kThreads, 0, stream>>>(
         x, qg, sg, bg, out, M, K, N, gs);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_simple_any(const void* x, const void* qg, const void* sg,
+                              const void* bg, void* out, int M, int K, int N, int gs,
+                              void* stream) {
+  auto* xp = static_cast<const T*>(x);
+  auto* qp = static_cast<const uint8_t*>(qg);
+  auto* sp = static_cast<const float*>(sg);
+  auto* bp = static_cast<const float*>(bg);
+  auto* op = static_cast<T*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  return M == 1 ? launch_simple<T, 1>(xp, qp, sp, bp, op, M, K, N, gs, st)
+                : launch_simple<T, kMaxRows>(xp, qp, sp, bp, op, M, K, N, gs, st);
 }
 
 }  // namespace
@@ -653,6 +689,9 @@ extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
                                 void* counters, int M, int K, int N, int gs,
                                 int band_rows, int bands, int k_splits,
                                 int sb_groups, void* stream) {
+  if (bands == 0)
+    return static_cast<int>(
+        launch_simple_any<__nv_bfloat16>(x, qg, sg, bg, out, M, K, N, gs, stream));
   auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<const uint8_t*>(qg);
   auto* sp = static_cast<const float*>(sg);
@@ -661,10 +700,6 @@ extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
   auto* wp = static_cast<float*>(ws);
   auto* cp = static_cast<int*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
-  if (bands == 0)
-    return static_cast<int>(M == 1 ? launch_simple<1>(xp, qp, sp, bp, op, M, K, N, gs, st)
-                                   : launch_simple<kMaxRows>(xp, qp, sp, bp, op, M, K,
-                                                             N, gs, st));
   // what the ring path takes (the plan sends nothing else)
   if (K % kTK || gs % 16 || kTK % gs || reinterpret_cast<uintptr_t>(x) % 16 ||
       k_splits < 1 || k_splits > K / kTK || sb_groups > kSbGroupsMax ||
@@ -689,4 +724,17 @@ extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
   RING_CASE(8, 8)
 #undef RING_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel A at float32 x and out (the f32 instance): the simple path only
+// (bands = 0; its staged x rows hold 1024 elements, so gs <= 1024), with the
+// bf16 entry's arguments. The ring's x stages are sized for 2-byte elements.
+extern "C" int qmv_grouped_f32(const void* x, const void* qg, const void* sg,
+                               const void* bg, void* out, void* ws,
+                               void* counters, int M, int K, int N, int gs,
+                               int band_rows, int bands, int k_splits,
+                               int sb_groups, void* stream) {
+  if (bands != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_simple_any<float>(x, qg, sg, bg, out, M, K, N, gs, stream));
 }

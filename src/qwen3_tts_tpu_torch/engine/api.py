@@ -10,8 +10,11 @@ reference app consumes):
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA, the default raises rather than falling
-back. This slice covers synthetic models (``synthetic:tiny|flagship``, the
-custom and design modes) on the cb0 protocol with the rvq codec; what waits
+back. The port covers synthetic models (``synthetic:tiny|flagship`` with
+the rvq codec and ``synthetic:tiny-code2wav|flagship-code2wav`` with the
+code2wav decoder, the custom and design modes) and, through
+``Qwen3TTSModel.synthetic``, any config of ``engine/configs.py`` at one
+frame per step, the published residual_sum protocol included; what waits
 for later slices raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -131,8 +134,9 @@ class Qwen3TTSModel:
 
 
 def load_model(model_path: str, device=None, *, seed: int = 0) -> Qwen3TTSModel:
-    """Build a synthetic model from ``synthetic:tiny|flagship[:custom|design]``
-    on ``device`` (default: the CUDA device)."""
+    """Build a synthetic model from ``synthetic:<size>[:custom|design]``,
+    size one of tiny, flagship, tiny-code2wav, flagship-code2wav, on
+    ``device`` (default: the CUDA device)."""
     dev = resolve_device(device)
     m = _SYNTH_RE.match(model_path or "")
     if not m:
@@ -141,12 +145,14 @@ def load_model(model_path: str, device=None, *, seed: int = 0) -> Qwen3TTSModel:
             "import (ROADMAP queue A, item 10)"
         )
     size, mode = m.group(1), m.group(2) or "custom"
-    if size.endswith("code2wav"):
-        raise NotImplementedError(
-            "the code2wav codec waits for ROADMAP queue A, item 8")
     if mode == "base":
         raise NotImplementedError(f"the base mode: {_CLONING}")
-    cfg = configs.tiny(mode, quant=True) if size == "tiny" else configs.flagship(mode)
+    cfg = {
+        "tiny": lambda: configs.tiny(mode, quant=True),
+        "flagship": lambda: configs.flagship(mode),
+        "tiny-code2wav": lambda: configs.tiny_code2wav(mode),
+        "flagship-code2wav": lambda: configs.flagship_code2wav(mode),
+    }[size]()
     return Qwen3TTSModel.synthetic(cfg, seed=seed, device=dev)
 
 

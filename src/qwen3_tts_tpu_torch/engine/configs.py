@@ -3,8 +3,11 @@ package's engine/configs.py; the port imports nothing of that package).
 
 The flagship preset encodes the Qwen3-TTS-12Hz-1.7B family (1.7B-param
 Qwen3 backbone, 12 Hz multi-codebook neural codec, 24 kHz output); ``tiny``
-is a CPU-testable miniature with the same structure. The code2wav and
-published-feedback presets wait for their slices (ROADMAP queue A).
+is a CPU-testable miniature with the same structure. ``*_code2wav`` run
+the published code2wav codec decoder (``Code2WavConfig``) in place of the
+synthetic rvq codec, and ``*_feedback`` the published residual-sum decode
+protocol; ``flagship_feedback_code2wav`` is both, the shape of a real
+imported checkpoint.
 """
 
 from __future__ import annotations
@@ -259,6 +262,75 @@ class CodecConfig:
 
 
 @dataclass(frozen=True)
+class Code2WavConfig:
+    """Geometry of the code2wav decoder (the JAX package's
+    ``models/code2wav.py::Code2WavConfig``, which mirrors the HF
+    ``Qwen3OmniMoeCode2WavConfig`` field for field; defaults are the
+    published Omni values, real values come from the checkpoint)."""
+
+    codebook_size: int = 2048
+    num_quantizers: int = 16
+    hidden: int = 1024
+    n_layers: int = 8
+    n_heads: int = 16
+    n_kv_heads: int = 16
+    ffn: int = 3072
+    rope_theta: float = 10_000.0
+    rms_eps: float = 1e-5
+    sliding_window: int = 72
+    layer_scale_init: float = 0.01
+    upsample_rates: tuple[int, ...] = (8, 5, 4, 3)
+    upsampling_ratios: tuple[int, ...] = (2, 2)
+    decoder_dim: int = 1536
+    sample_rate: int = 24_000
+    max_positions: int = 8000          # pre-transformer RoPE table length
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.n_heads
+
+    @property
+    def total_upsample(self) -> int:
+        return math.prod(self.upsample_rates) * math.prod(self.upsampling_ratios)
+
+    @property
+    def frame_rate(self) -> float:
+        return self.sample_rate / self.total_upsample
+
+    @property
+    def startup_samples(self) -> int:
+        """Length of the stream's edge run-in: each decoder block's
+        transposed conv contributes its (kernel - stride) = rate head
+        samples, scaled by the rates below it. The one-shot decode trims
+        exactly these; the stream drops them once per utterance."""
+        return sum(r * math.prod(self.upsample_rates[i + 1:])
+                   for i, r in enumerate(self.upsample_rates))
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "Code2WavConfig":
+        """Build from a checkpoint's ``code2wav_config`` JSON section."""
+        return cls(
+            codebook_size=d.get("codebook_size", 2048),
+            num_quantizers=d.get("num_quantizers", 16),
+            hidden=d.get("hidden_size", 1024),
+            n_layers=d.get("num_hidden_layers", 8),
+            n_heads=d.get("num_attention_heads", 16),
+            n_kv_heads=d.get("num_key_value_heads",
+                             d.get("num_attention_heads", 16)),
+            ffn=d.get("intermediate_size", 3072),
+            rope_theta=d.get("rope_theta", 10_000.0),
+            rms_eps=d.get("rms_norm_eps", 1e-5),
+            sliding_window=d.get("sliding_window", 72),
+            layer_scale_init=d.get("layer_scale_initial_scale", 0.01),
+            upsample_rates=tuple(d.get("upsample_rates", (8, 5, 4, 3))),
+            upsampling_ratios=tuple(d.get("upsampling_ratios", (2, 2))),
+            decoder_dim=d.get("decoder_dim", 1536),
+            sample_rate=d.get("sample_rate", 24_000),
+            max_positions=d.get("max_position_embeddings", 8000),
+        )
+
+
+@dataclass(frozen=True)
 class QuantConfig:
     """Weight-only affine quantization (MLX-compatible layout: per-group
     scale+bias along the input dimension, uint8 codes)."""
@@ -277,6 +349,14 @@ class ModelConfig:
     code_predictor: CodePredictorConfig = field(default_factory=CodePredictorConfig)
     codec: CodecConfig = field(default_factory=CodecConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
+    # which codec decoder architecture `codec_params` carries:
+    #   "rvq"      — the synthetic RVQ codec (models/codec.py)
+    #   "code2wav" — the published family (models/code2wav.py); `code2wav`
+    #                holds its geometry, and `codec` is derived to match
+    #                (frame rate, codebook counts) so the talker and
+    #                code-predictor plumbing is arch-agnostic
+    codec_arch: str = "rvq"
+    code2wav: Code2WavConfig | None = None
     dtype: str = "bfloat16"
     max_seq_len: int = 3072            # prompt + generated frames budget
     # whether the checkpoint natively honors the speed control tag; when
@@ -320,6 +400,121 @@ def flagship(mode: str = "custom", *, frames_per_step: int = 1) -> ModelConfig:
             cfg, talker=replace(cfg.talker, frames_per_step=frames_per_step)
         )
     return cfg
+
+
+def with_code2wav(cfg: ModelConfig, c2w: Code2WavConfig) -> ModelConfig:
+    """Switch ``cfg`` to the code2wav decoder (models/code2wav.py).
+
+    The ``codec`` section is re-derived so every arch-agnostic consumer
+    (talker codebook sizes, code-predictor depth, frame-rate and hop
+    arithmetic) sees consistent numbers: code2wav quantizers are uniform,
+    so codebook and residual sizes coincide."""
+    n_stages = len(c2w.upsample_rates) + len(c2w.upsampling_ratios)
+    channels = cfg.codec.decoder_channels
+    codec = replace(
+        cfg.codec,
+        sample_rate=c2w.sample_rate,
+        frame_rate=c2w.sample_rate / c2w.total_upsample,
+        num_codebooks=c2w.num_quantizers,
+        codebook_size=c2w.codebook_size,
+        residual_codebook_size=c2w.codebook_size,
+        latent_dim=c2w.hidden,
+        # the fields below only shape the synthetic rvq tree (and the
+        # cloning feature encoder); kept consistent with the hop
+        upsample_rates=tuple(c2w.upsample_rates) + tuple(c2w.upsampling_ratios),
+        decoder_channels=(tuple(channels[:n_stages + 1])
+                          if len(channels) >= n_stages + 1
+                          else (channels[0],) * (n_stages + 1)),
+    )
+    return replace(cfg, codec_arch="code2wav", code2wav=c2w, codec=codec)
+
+
+def flagship_code2wav(mode: str = "custom") -> ModelConfig:
+    """The flagship talker driving the code2wav decoder at the published
+    geometry, at the 12 Hz frame rate of the TTS checkpoints (upsample
+    10*5*5*4*2 = 2000 samples a frame at 24 kHz)."""
+    base = flagship(mode)
+    return with_code2wav(base, Code2WavConfig(
+        codebook_size=base.codec.codebook_size,
+        num_quantizers=base.codec.num_codebooks,
+        upsample_rates=(10, 5, 5, 4),
+        upsampling_ratios=(2,),
+        sample_rate=base.codec.sample_rate,
+    ))
+
+
+def tiny_code2wav(mode: str = "custom") -> ModelConfig:
+    """The tiny config running the code2wav decoder (hop 3*2*2 = 12
+    samples a frame)."""
+    base = tiny(mode, quant=False)
+    return with_code2wav(base, Code2WavConfig(
+        codebook_size=base.codec.codebook_size,
+        num_quantizers=base.codec.num_codebooks,
+        hidden=32,
+        n_layers=1,
+        n_heads=4,
+        n_kv_heads=2,
+        ffn=64,
+        sliding_window=8,
+        upsample_rates=(3, 2),
+        upsampling_ratios=(2,),
+        decoder_dim=16,
+        sample_rate=base.codec.sample_rate,
+        max_positions=512,
+    ))
+
+
+def _published_protocol(base: ModelConfig, talker_ids: dict,
+                        **cp_changes) -> ModelConfig:
+    """``base`` under the published decode protocol: residual-sum feedback
+    with trailing text, and the two-position (hidden_token) code predictor
+    at talker width with no input projection and no qk-norm."""
+    return replace(
+        base,
+        talker=replace(base.talker, feedback="residual_sum", **talker_ids),
+        code_predictor=replace(
+            base.code_predictor, hidden=base.talker.hidden,
+            input_layout="hidden_token", input_proj=False, qk_norm=False,
+            **cp_changes),
+    )
+
+
+def flagship_feedback(mode: str = "custom") -> ModelConfig:
+    """The flagship under the published decode protocol: the cost model of
+    a real imported checkpoint (the code predictor runs per frame inside
+    the talker loop, at talker width, sampling with the published top_k=50,
+    top_p=0.8). Synthetic ids stand in for the checkpoint's tts and think
+    markers. Frames per step > 1 waits for ROADMAP queue A, item 9."""
+    return _published_protocol(
+        flagship(mode),
+        dict(tts_pad_id=151_000, tts_bos_id=151_001, tts_eos_id=151_002,
+             codec_nothink=2_045, codec_think_bos=2_046,
+             codec_think_eos=2_047),
+        top_k=50, top_p=0.8)
+
+
+def flagship_feedback_code2wav(mode: str = "custom") -> ModelConfig:
+    """The real-checkpoint cost model: the published decode protocol
+    (flagship_feedback) driving the code2wav decoder at 12 Hz geometry
+    (flagship_code2wav)."""
+    base = flagship_feedback(mode)
+    return with_code2wav(base, Code2WavConfig(
+        codebook_size=base.codec.codebook_size,
+        num_quantizers=base.codec.num_codebooks,
+        upsample_rates=(10, 5, 5, 4),
+        upsampling_ratios=(2,),
+        sample_rate=base.codec.sample_rate,
+    ))
+
+
+def tiny_feedback(mode: str = "custom") -> ModelConfig:
+    """The tiny config under the published decode protocol (residual-sum
+    feedback, trailing text, the hidden_token code-predictor layout)."""
+    return _published_protocol(
+        tiny(mode),
+        dict(tts_pad_id=250, tts_bos_id=251, tts_eos_id=252,
+             codec_nothink=60, codec_think_bos=61, codec_think_eos=62,
+             trailing_bucket=64))
 
 
 def torch_dtype(cfg: ModelConfig):

@@ -4,8 +4,11 @@ remaining RVQ codebooks 1..Q-1 for that frame.
 
 Residual prediction for a whole chunk of frames is batched over frames: the
 depth loop runs Q-1 steps once per chunk, so its linears see chunk-sized
-rows. The speculative depth decode and the draft adapter wait for the
-published-protocol slice (ROADMAP queue A, item 9).
+rows. Under the published residual_sum protocol it runs once per frame
+inside the talker loop instead, and ``return_feedback`` adds the summed
+embeddings of its codes, the residual half of the talker's next input.
+The speculative depth decode and the draft adapter wait for ROADMAP queue
+A, item 9.
 """
 
 from __future__ import annotations
@@ -71,9 +74,11 @@ def predict_residuals(
     talker_hidden: torch.Tensor,   # [B, D_talker] — B is batch * frames
     cb0_tokens: torch.Tensor,      # [B] codebook-0 ids
     generator: torch.Generator | None = None,
-) -> torch.Tensor:
+    return_feedback: bool = False,
+):
     """Depth-autoregressive prediction of the residual codebooks: codes
-    [B, Q-1] (int64).
+    [B, Q-1] (int64); with ``return_feedback``, (codes,
+    ``residual_feedback_sum`` of them [B, H]).
 
     With ``generator`` given AND a config that asks for it (cp.top_k > 0,
     cp.top_p < 1 or cp.temperature != 1) each depth is sampled; otherwise
@@ -166,4 +171,17 @@ def predict_residuals(
             groups.append(score_group(h[:, -1], g))
             if g + 1 < n_groups:
                 x_in = next_input(groups[-1], g)
-    return torch.cat(groups, dim=1)
+    codes = torch.cat(groups, dim=1)
+    if return_feedback:
+        return codes, residual_feedback_sum(params, codes)
+    return codes
+
+
+def residual_feedback_sum(params: Params, codes: torch.Tensor) -> torch.Tensor:
+    """Sum_d res_emb[d][codes[:, d]]: the residual-codebook half of the
+    published talker feedback ([B, Q-1] codes -> [B, H]), summed in f32
+    in depth order and rounded to the tables' type."""
+    tables = params["res_emb"]
+    per_depth = torch.stack([tables[d][codes[:, d]]
+                             for d in range(codes.shape[1])])
+    return per_depth.float().sum(dim=0).to(tables.dtype)

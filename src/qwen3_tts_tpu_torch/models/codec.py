@@ -1,5 +1,8 @@
 """The 12 Hz residual-VQ neural codec: decoder (codes -> 24 kHz waveform),
-one-shot and streaming.
+one-shot and streaming; and the codec entry points of both decoder
+architectures (``cfg.codec_arch``): ``init_codec``,
+``init_codec_stream_state`` and ``decode_codes_streaming`` route a
+code2wav config to ``models/code2wav.py``.
 
 Causal 1-D convolutions over ``[B, T, C]`` (the JAX package's layout at the
 public functions; weights ``[k, C_in, C_out]``), nearest-repeat upsampling,
@@ -17,12 +20,20 @@ import torch
 import torch.nn.functional as F
 
 from ..engine.configs import CodecConfig, ModelConfig, torch_dtype
+from .code2wav import code2wav_stream_step, init_code2wav, stream_state_init
 from .init import make_init, stack_trees
 from .layers import rmsnorm, rope_slice, rope_tables, transformer_block, unstack_layers
 
 Params = dict[str, Any]
 
 MAX_FRAMES = 4096  # RoPE table budget: the per-utterance frame limit
+
+
+def max_stream_frames(cfg: ModelConfig) -> int:
+    """Per-utterance frame budget imposed by the codec's position tables."""
+    if cfg.codec_arch == "code2wav":
+        return cfg.code2wav.max_positions
+    return MAX_FRAMES
 
 
 # --------------------------------------------------------------------------
@@ -98,10 +109,18 @@ def _skip_encoder_draws(init, cc: CodecConfig) -> None:
 
 
 def init_codec(cfg: ModelConfig, seed: int = 2, device=None) -> Params:
-    """Random-init rvq codec decoder (``dec``) and ``spk_proj`` parameters
-    (see talker.init_talker for ``device``)."""
+    """Random-init codec decoder (``dec`` for the rvq codec, ``c2w`` for
+    code2wav) and ``spk_proj`` parameters (see talker.init_talker for
+    ``device``)."""
     cc = cfg.codec
     init = make_init(seed, torch_dtype(cfg), device)
+    if cfg.codec_arch == "code2wav":
+        # the JAX package draws c2w from its own rng of the same seed
+        c2w = init_code2wav(cfg.code2wav, seed, torch_dtype(cfg), device)
+        if device is None:
+            _skip_encoder_draws(init, cc)
+        return {"c2w": c2w, "spk_proj": {
+            "w": init.normal((cfg.talker.hidden, cc.latent_dim), 0.02)}}
     head_dim = cc.latent_dim // cc.transformer_heads
     ffn = 4 * cc.latent_dim
     n_res = cc.num_codebooks - 1
@@ -232,7 +251,11 @@ def conv_state_spec(cc: CodecConfig) -> dict[str, tuple[int, int]]:
 def init_codec_stream_state(cfg: ModelConfig, batch: int, *,
                             dtype=torch.bfloat16, device="cpu") -> dict:
     """Streaming state: latent-transformer KV caches (MAX_FRAMES long) +
-    zeroed per-conv left contexts (== causal zero padding at start)."""
+    zeroed per-conv left contexts (== causal zero padding at start); for
+    code2wav, ``code2wav.stream_state_init``."""
+    if cfg.codec_arch == "code2wav":
+        return stream_state_init(cfg.code2wav, batch, dtype=dtype,
+                                 device=device)
     cc = cfg.codec
     head_dim = cc.latent_dim // cc.transformer_heads
     cache_shape = (cc.n_transformer_layers, batch, MAX_FRAMES,
@@ -249,7 +272,15 @@ def decode_codes_streaming(params: Params, cfg: ModelConfig,
                            codes_new: torch.Tensor, state: dict, pos: int):
     """Decode ``chunk`` new frames (codes [B, Q, chunk]) with full left
     context; returns (wav_chunk [B, chunk*hop] f32, new_state). The KV
-    caches in ``state`` are updated in place."""
+    caches in ``state`` are updated in place.
+
+    code2wav configs take ``code2wav_stream_step`` (the uniform-shape
+    variant): every chunk emits chunk*hop samples, the stream's first
+    ``cfg.code2wav.startup_samples`` being the edge run-in that the
+    one-shot decode trims (Generator.stream drops them)."""
+    if cfg.codec_arch == "code2wav":
+        return code2wav_stream_step(params["c2w"], cfg.code2wav, state,
+                                    codes_new, pos)
     cc = cfg.codec
     dec = params["dec"]
     T = codes_new.shape[2]

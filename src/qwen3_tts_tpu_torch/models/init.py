@@ -43,6 +43,9 @@ class HostInit:
     def zeros(self, n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=self.dtype)
 
+    def full(self, n: int, value: float) -> torch.Tensor:
+        return torch.full((n,), value, dtype=self.dtype)
+
 
 class DeviceInit:
     def __init__(self, seed: int, dtype: torch.dtype, device):
@@ -77,6 +80,9 @@ class DeviceInit:
 
     def zeros(self, n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=self.dtype, device=self.device)
+
+    def full(self, n: int, value: float) -> torch.Tensor:
+        return torch.full((n,), value, dtype=self.dtype, device=self.device)
 
 
 def make_init(seed: int, dtype: torch.dtype, device=None):

@@ -5,7 +5,7 @@ Layers are stacked along a leading ``L`` axis in the parameter tree (the
 JAX package's layout) and driven by a Python loop; callers on the hot path
 pass ``blocks`` pre-split into a list of per-layer dicts
 (``layers.unstack_layers``). Multi-token prediction heads
-(``frames_per_step > 1``) wait for the published-protocol slice.
+(``frames_per_step > 1``) wait for ROADMAP queue A, item 9.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..engine.configs import ModelConfig, TalkerConfig, torch_dtype
 from ..ops.linear import linear
@@ -103,12 +104,32 @@ def embed_codec_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["codec_emb"][tokens]
 
 
-def merge_step_tokens(params: Params, t: TalkerConfig,
-                      tokens: torch.Tensor) -> torch.Tensor:
-    """One step's token ids [B, frames_per_step] -> the talker's next input
-    embedding [B, D]; at frames_per_step == 1 the plain codec embedding."""
+def merge_step_embs(params: Params, t: TalkerConfig,
+                    embs: torch.Tensor) -> torch.Tensor:
+    """One step's frame embeddings [B, frames_per_step, D] -> the talker's
+    next input embedding [B, D]; at frames_per_step == 1 the single
+    embedding (under the residual_sum protocol the full feedback vector:
+    cb0 + residual sum + trailing-text row)."""
     if t.frames_per_step != 1:
         raise NotImplementedError(
             "MTP merge (frames_per_step > 1) waits for ROADMAP queue A, item 9"
         )
-    return params["codec_emb"][tokens[:, 0]]
+    return embs[:, 0]
+
+
+def merge_step_tokens(params: Params, t: TalkerConfig,
+                      tokens: torch.Tensor) -> torch.Tensor:
+    """One step's token ids [B, frames_per_step] -> the talker's next input
+    embedding [B, D]; at frames_per_step == 1 the plain codec embedding."""
+    return merge_step_embs(params, t, params["codec_emb"][tokens])
+
+
+def text_projection(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The checkpoint's text-projection MLP when the tree has one (identity
+    otherwise): the published talker family projects text hiddens into
+    talker width (Qwen3OmniMoeTalkerResizeMLP: biased fc1 -> silu ->
+    biased fc2)."""
+    tp = params.get("text_proj")
+    if tp is None:
+        return x
+    return linear(F.silu(linear(x, tp["fc1"])), tp["fc2"])

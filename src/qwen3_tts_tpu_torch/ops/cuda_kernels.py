@@ -8,7 +8,9 @@ together) into ``build/kernels/`` at the repository root. Library names
 carry a hash of the source, of the headers it includes and of the flags,
 so an edited source or header rebuilds and an unchanged one loads.
 
-Both C entry points have the signature::
+Each source exports two C entry points, one per activation type
+(bfloat16 and float32, e.g. ``qmv_grouped_bf16`` and ``qmv_grouped_f32``),
+both with the signature::
 
     int fn(const void* x, const void* w, const void* scale, const void* bias,
            void* out, void* workspace, void* counters, int M, int K, int N,
@@ -18,9 +20,10 @@ with the split-K workspace, the tile counters and four ints of the host's
 launch plan: kernel A's (band_rows, bands, k_splits, sb_groups) from
 ``ops/grouped_qmv.py::plan_kernel_a``, kernel B's (m_frags, k_splits,
 k_unit, sb_groups) from ``ops/dequant_matmul.py::plan_kernel_b`` (see each
-source's entry point). Each returns the CUDA error of its launch;
-:class:`Kernel` raises when that is not 0, and counts the launches that
-succeeded and the (M, N, K, gs) shapes they ran. The nvcc output of a build
+source's entry points; the float32 ones take the simple paths and read no
+plan). Each returns the CUDA error of its launch; :class:`Kernel` raises
+when that is not 0, and counts the launches that succeeded, whichever entry
+ran them, and the (M, N, K, gs) shapes they ran. The nvcc output of a build
 (ptxas' registers and spills) is kept beside its library.
 """
 
@@ -62,17 +65,19 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One CUDA source, its shared library and its launch count."""
+    """One CUDA source, its shared library, its entry points by activation
+    type (``symbols``: dtype name -> C symbol) and its launch count."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, source: str, symbols: dict[str, str],
+                 argtypes):
         self.name = name
         self.source = CSRC / source
-        self.symbol = symbol
+        self.symbols = symbols
         self.argtypes = argtypes
         self.launches = 0
         self.shapes: set[tuple[int, int, int, int]] = set()  # (M, N, K, gs)
         self.build_log = ""
-        self._fn = None
+        self._fns = None
 
     def headers(self) -> list[Path]:
         """The headers the source includes with ``#include "..."``, found
@@ -88,21 +93,25 @@ class Kernel:
         ).hexdigest()[:12]
         return BUILD_DIR / f"{self.name}-{digest}.so"
 
-    def load(self):
-        """The bound C function; builds the library first if it is not in
-        ``build/kernels/`` yet."""
-        if self._fn is None:
+    def load(self) -> dict:
+        """The bound C functions by dtype name; builds the library first if
+        it is not in ``build/kernels/`` yet."""
+        if self._fns is None:
             lib = self.library_path()
             if lib.exists():
                 log = lib.with_suffix(".log")
                 self.build_log = log.read_text() if log.exists() else ""
             else:
                 self._build(lib)
-            fn = getattr(ctypes.CDLL(str(lib)), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            handle = ctypes.CDLL(str(lib))
+            fns = {}
+            for dtype, symbol in self.symbols.items():
+                fn = getattr(handle, symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                fns[dtype] = fn
+            self._fns = fns
+        return self._fns
 
     def _build(self, lib: Path) -> None:
         """nvcc into a temporary name, then move into place atomically
@@ -122,15 +131,16 @@ class Kernel:
         lib.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, lib)
 
-    def call(self, args: tuple, shape: tuple[int, int, int, int]) -> None:
-        """Call the C entry point with ``args`` (one launch of the
+    def call(self, dtype: str, args: tuple,
+             shape: tuple[int, int, int, int]) -> None:
+        """Call the ``dtype`` entry point with ``args`` (one launch of the
         (M, N, K, gs) ``shape``); raises if the launch was refused."""
-        rc = self.load()(*args)
+        rc = self.load()[dtype](*args)
         if rc != 0:
             m, n, k, gs = shape
             raise RuntimeError(
-                f"CUDA kernel {self.name} failed to launch: cudaError {rc} "
-                f"(M={m}, K={k}, N={n}, gs={gs})"
+                f"CUDA kernel {self.name} ({dtype}) failed to launch: "
+                f"cudaError {rc} (M={m}, K={k}, N={n}, gs={gs})"
             )
         self.launches += 1
         self.shapes.add(shape)
@@ -141,11 +151,13 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # the plan; stream
 _ARGTYPES = [_PTR] * 7 + [_INT] * 8 + [_PTR]
 # plan ints: band_rows, bands, k_splits, sb_groups
-GROUPED_QMV = Kernel("grouped_qmv", "grouped_qmv.cu", "qmv_grouped_bf16",
-                     _ARGTYPES)
+GROUPED_QMV = Kernel("grouped_qmv", "grouped_qmv.cu",
+                     {"bfloat16": "qmv_grouped_bf16",
+                      "float32": "qmv_grouped_f32"}, _ARGTYPES)
 # plan ints: m_frags, k_splits, k_unit, sb_groups
 DEQUANT_MATMUL = Kernel("dequant_matmul", "dequant_matmul.cu",
-                        "dequant_matmul_bf16", _ARGTYPES)
+                        {"bfloat16": "dequant_matmul_bf16",
+                         "float32": "dequant_matmul_f32"}, _ARGTYPES)
 KERNELS = (GROUPED_QMV, DEQUANT_MATMUL)
 
 

@@ -145,11 +145,14 @@ def quantized_matmul_ref(x, q, scale, bias):
 
 
 def dequant_matmul_cuda(x2: torch.Tensor, q, scale, bias) -> torch.Tensor:
-    """Kernel B on the card: x2 [M, K] bf16 x row-major int8 W -> [M, N]."""
+    """Kernel B on the card: x2 [M, K] bf16 or f32 x row-major int8 W ->
+    [M, N] in x2.dtype (bf16: as ``plan_kernel_b`` plans it; f32: the
+    CUDA-core f32 instance, no plan)."""
     n, k = q.shape
     g = scale.shape[-1]
-    if x2.dtype != torch.bfloat16:
-        raise TypeError(f"dequant_matmul: x must be bfloat16, got {x2.dtype}")
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(
+            f"dequant_matmul: x must be bfloat16 or float32, got {x2.dtype}")
     if q.dtype != torch.uint8 or scale.dtype != torch.float32 \
             or bias.dtype != torch.float32:
         raise TypeError(
@@ -173,15 +176,20 @@ def dequant_matmul_cuda(x2: torch.Tensor, q, scale, bias) -> torch.Tensor:
         return out
     gs = k // g
     dev = x2.device
-    aligned = x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
-    plan = plan_kernel_b(m, n, k, gs, _sm_count(dev.index), aligned)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ws, cnt = _scratch(dev, stream, plan)
+    if x2.dtype == torch.float32:
+        entry, ws_ptr, cnt_ptr, plan_ints = "float32", 0, 0, (0, 0, 0, 0)
+    else:
+        aligned = x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+        plan = plan_kernel_b(m, n, k, gs, _sm_count(dev.index), aligned)
+        ws, cnt = _scratch(dev, stream, plan)
+        entry, ws_ptr, cnt_ptr = "bfloat16", ws.data_ptr(), cnt.data_ptr()
+        plan_ints = (plan.m_frags, plan.k_splits, plan.k_unit, plan.sb_groups)
     with torch.cuda.device(dev):
         DEQUANT_MATMUL.call(
+            entry,
             (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), m, k, n, gs,
-             plan.m_frags, plan.k_splits, plan.k_unit, plan.sb_groups,
+             out.data_ptr(), ws_ptr, cnt_ptr, m, k, n, gs, *plan_ints,
              stream),
             (m, n, k, gs),
         )

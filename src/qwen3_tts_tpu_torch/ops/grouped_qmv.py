@@ -85,11 +85,12 @@ class KernelAPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def plan_kernel_a(m: int, n: int, k: int, gs: int, sm_count: int,
-                  aligned: bool = True) -> KernelAPlan:
+                  aligned: bool = True, bf16: bool = True) -> KernelAPlan:
     """Kernel A's launch for x [m, k] (1 <= m <= MAX_M) and qg [k/gs, gs, n].
 
-    The ring path takes K a multiple of SLICE_K, gs in {16, 32, 64} (whole
-    groups in a slice) and 16-byte aligned x and qg; a ragged N takes it
+    The ring path takes bf16 x (``bf16``; its x stages hold 2-byte
+    elements), K a multiple of SLICE_K, gs in {16, 32, 64} (whole groups
+    in a slice) and 16-byte aligned x and qg; a ragged N takes it
     too, through aligned-down row windows. One block covers all m rows, in
     the smallest instance of BANDS that holds them, and TILE_N columns. K is
     split in whole slices into the number of splits, at most MAX_SPLITS,
@@ -102,7 +103,7 @@ def plan_kernel_a(m: int, n: int, k: int, gs: int, sm_count: int,
     all of K."""
     if not 1 <= m <= MAX_M:
         raise ValueError(f"kernel A takes 1..{MAX_M} rows, got {m}")
-    if not aligned or k % SLICE_K or gs % 16 or SLICE_K % gs:
+    if not (aligned and bf16) or k % SLICE_K or gs % 16 or SLICE_K % gs:
         rows = 1 if m == 1 else 8
         return KernelAPlan(False, False, 0, 0, rows, k, 1, 0,
                            -(-n // SIMPLE_TILE_N) * -(-m // rows), 0, 0)
@@ -221,13 +222,21 @@ def quantized_matmul_grouped_ref(x, qg, sg, bg):
     return out.reshape(*lead, n).to(x.dtype)
 
 
+# the C entry point of each activation type, and the largest group its
+# simple path stages (a 4 KB row of x)
+_ENTRY = {torch.bfloat16: ("bfloat16", 2048), torch.float32: ("float32", 1024)}
+
+
 def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
-    """Kernel A on the card: x2 [M <= MAX_M, K] bf16 x grouped weight ->
-    [M, N] bf16, launched as ``plan_kernel_a`` plans it."""
+    """Kernel A on the card: x2 [M <= MAX_M, K] bf16 or f32 x grouped
+    weight -> [M, N] in x2.dtype, launched as ``plan_kernel_a`` plans it
+    (f32 x always takes the simple path)."""
     g, gs, n = qg.shape
     k = g * gs
-    if x2.dtype != torch.bfloat16:
-        raise TypeError(f"grouped_qmv: x must be bfloat16, got {x2.dtype}")
+    if x2.dtype not in _ENTRY:
+        raise TypeError(
+            f"grouped_qmv: x must be bfloat16 or float32, got {x2.dtype}")
+    entry, max_gs = _ENTRY[x2.dtype]
     if qg.dtype != torch.uint8 or sg.dtype != torch.float32 \
             or bg.dtype != torch.float32:
         raise TypeError(
@@ -240,8 +249,9 @@ def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
             f"grouped_qmv: shapes x {tuple(x2.shape)}, qg {tuple(qg.shape)}, "
             f"sg {tuple(sg.shape)}, bg {tuple(bg.shape)} do not match"
         )
-    if not 1 <= gs <= 2048:
-        raise ValueError(f"grouped_qmv: group size {gs} outside 1..2048")
+    if not 1 <= gs <= max_gs:
+        raise ValueError(
+            f"grouped_qmv: group size {gs} outside 1..{max_gs} ({entry})")
     tensors = (x2, qg, sg, bg)
     if any(not t.is_cuda or t.device != x2.device for t in tensors):
         raise ValueError("grouped_qmv: all tensors must be on one CUDA device")
@@ -253,12 +263,13 @@ def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
         return out
     dev = x2.device
     aligned = x2.data_ptr() % 16 == 0 and qg.data_ptr() % 16 == 0
-    plan = plan_kernel_a(m, n, k, gs, _sm_count(dev.index), aligned)
+    plan = plan_kernel_a(m, n, k, gs, _sm_count(dev.index), aligned,
+                         entry == "bfloat16")
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws, cnt = _scratch(dev, stream, plan)
     with torch.cuda.device(dev):
         GROUPED_QMV.call(
-            (x2.data_ptr(), qg.data_ptr(), sg.data_ptr(), bg.data_ptr(),
+            entry, (x2.data_ptr(), qg.data_ptr(), sg.data_ptr(), bg.data_ptr(),
              out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), m, k, n, gs,
              plan.band_rows, plan.bands, plan.k_splits, plan.sb_groups,
              stream),

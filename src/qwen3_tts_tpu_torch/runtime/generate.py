@@ -1,13 +1,17 @@
-"""Synthesis pipeline, cb0 feedback protocol: prompt embedding -> prefill ->
-chunked autoregressive decode -> residual-codebook prediction -> streaming
-codec decode -> 16-bit PCM.
+"""Synthesis pipeline: prompt embedding -> prefill -> chunked
+autoregressive decode -> residual-codebook prediction -> streaming codec
+decode -> 16-bit PCM, under either decode protocol (``TalkerConfig.feedback``)
+and either codec decoder (``ModelConfig.codec_arch``).
 
 Eager PyTorch with the JAX package's structure:
 
-- decode runs in chunks; a chunk is ``chunk`` talker steps (token sampled on
-  the device and fed back without a host read), one batched code-predictor
-  pass over the chunk's frames, one incremental codec decode and the PCM
-  conversion;
+- decode runs in chunks; under the cb0 protocol a chunk is ``chunk`` talker
+  steps (token sampled on the device and fed back without a host read),
+  one batched code-predictor pass over the chunk's frames, one incremental
+  codec decode and the PCM conversion. Under the published residual_sum
+  protocol the code predictor runs once per frame inside the talker loop,
+  since each step's input sums the previous frame's codebook embeddings and
+  one trailing-text row (``make_decode_chunk_fn_feedback``);
 - the host reads ONE packed tensor per chunk (valid-frame count, codes and
   PCM), which is where EOS is detected and the chunk is clipped;
 - prompts are LEFT-padded to length buckets (RoPE is relative and padded
@@ -30,12 +34,17 @@ import torch
 from ..engine.configs import ModelConfig, torch_dtype
 from ..models.code_predictor import predict_residuals
 from ..models.codec import (
-    MAX_FRAMES,
     decode_codes_streaming,
     init_codec_stream_state,
+    max_stream_frames,
 )
 from ..models.layers import fuse_block_projections, rope_tables, unstack_layers
-from ..models.talker import merge_step_tokens, talker_forward
+from ..models.talker import (
+    merge_step_embs,
+    merge_step_tokens,
+    talker_forward,
+    text_projection,
+)
 from ..ops.grouped_qmv import grouped_layout, pack_grouped_tree
 from ..ops.pcm import wav_to_pcm16
 from .prompts import PromptSpec
@@ -234,6 +243,97 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
     return decode_chunk
 
 
+def seed_feedback_frames(params, cp_params, cfg: ModelConfig,
+                         sampling: SamplingConfig, hidden, logits, generator):
+    """The published protocol's seed step at frames_per_step == 1: frame 0
+    from the prefill logits and one predictor pass for its residual codes.
+    hidden [B, D], logits [B, V] -> (tok [B, 1], feedback sum [B, 1, D],
+    residual codes [B, 1, Q-1]); the frame conditions the first decode
+    step and is not rendered."""
+    if cfg.talker.frames_per_step != 1:
+        raise NotImplementedError(
+            "MTP seed frames (frames_per_step > 1) wait for ROADMAP queue A, "
+            "item 9")
+    cb = cfg.codec.codebook_size
+    cb0 = sample_token(logits, generator, sampling)
+    res, rs = predict_residuals(
+        cp_params, cfg, hidden, cb0.clamp(0, cb - 1),
+        generator=generator if cp_samples(cfg, sampling) else None,
+        return_feedback=True)
+    return cb0[:, None], rs.to(hidden.dtype)[:, None], res[:, None]
+
+
+def trailing_lookup(trailing: torch.Tensor, g: int) -> torch.Tensor:
+    """Row ``g`` of the trailing-text buffer [B, Tb, D] -> [B, D]. The
+    buffer's last row is tts_pad (Generator._assemble_published), so
+    clamping the index conditions every frame past the text on tts_pad."""
+    return trailing[:, min(max(g, 0), trailing.shape[1] - 1)]
+
+
+def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
+                                  sampling: SamplingConfig,
+                                  attn_len: int | None = None) -> Callable:
+    """The published protocol's chunk (transformers
+    Qwen3OmniMoeTalkerForConditionalGeneration.prepare_inputs_for_generation)
+    at frames_per_step == 1: each talker step consumes the SUM of the
+    previous frame's codebook embeddings (cb0 through the talker's
+    codec_emb, residual d through the code predictor's depth-d table) and
+    one trailing-text row, so the code predictor runs once per frame inside
+    the loop. Then the streaming codec and PCM, as the cb0 chunk."""
+    t = cfg.talker
+    if t.frames_per_step != 1:
+        raise NotImplementedError(
+            "MTP under residual_sum (frames_per_step > 1) waits for ROADMAP "
+            "queue A, item 9")
+    S = cfg.max_seq_len
+    A = attn_len or S
+    cb_size = cfg.codec.codebook_size
+    cp_stoch = cp_samples(cfg, sampling)
+
+    def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
+                     cstate, trailing, pos: int, pad_len: int, n_frames: int,
+                     last_token, res_sum, g: int, generator):
+        """trailing [B, Tb, D]; last_token [B, 1]; res_sum [B, 1, D] the
+        feedback sum of last_token's residual codes; g the trailing rows
+        consumed. Returns (cache_k, cache_v, cstate, pos, tok, n_frames,
+        res_sum, g, n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
+        cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta,
+                                   last_token.device)
+        ck, cv = cache_k[:, :, :A], cache_v[:, :, :A]  # views: writes land
+        tok, rs = last_token, res_sum
+        toks, residuals = [], []
+        for s in range(chunk):
+            prev = params["codec_emb"][tok].to(rs.dtype) + rs      # [B, 1, D]
+            trail = trailing_lookup(trailing, g + s)[:, None]
+            emb = merge_step_embs(params, t, prev + trail)[:, None, :]
+            hidden, logits, _, _ = talker_forward(
+                params, t, emb, ck, cv, pos + s, cos_t, sin_t,
+                pad_len=pad_len,
+            )
+            cb0 = sample_token(logits[:, -1, :], generator, sampling)
+            res, rs_new = predict_residuals(
+                cp_params, cfg, hidden[:, -1, :], cb0.clamp(0, cb_size - 1),
+                generator=generator if cp_stoch else None,
+                return_feedback=True)
+            tok, rs = cb0[:, None], rs_new.to(rs.dtype)[:, None]
+            toks.append(cb0)
+            residuals.append(res)
+        tokens_bc = torch.stack(toks, dim=1)                       # [B, chunk]
+        codes = torch.cat(
+            [tokens_bc.clamp(0, cb_size - 1)[:, :, None],
+             torch.stack(residuals, dim=1)], dim=-1,
+        ).transpose(1, 2)                                          # [B, Q, chunk]
+        wav_chunk, cstate = decode_codes_streaming(
+            codec_params, cfg, codes, cstate, n_frames)
+        is_eos = (tokens_bc == t.codec_eos).int()
+        n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
+                              torch.full_like(is_eos[:, 0], chunk))
+        return (cache_k, cache_v, cstate, pos + chunk, tok, n_frames + chunk,
+                rs, g + chunk, n_valid, codes, wav_to_pcm16(wav_chunk))
+
+    return decode_chunk
+
+
 # --------------------------------------------------------------------------
 # the synthesis loop
 # --------------------------------------------------------------------------
@@ -261,11 +361,9 @@ class Generator:
 
     def __post_init__(self):
         t = self.cfg.talker
-        if t.feedback != "cb0" or t.frames_per_step != 1:
+        if t.frames_per_step != 1:
             raise NotImplementedError(
-                "the published residual_sum protocol and MTP "
-                "(frames_per_step > 1) wait for ROADMAP queue A, item 9"
-            )
+                "MTP (frames_per_step > 1) waits for ROADMAP queue A, item 9")
         self.device = _first_device(self.params)
         self.dtype = torch_dtype(self.cfg)
         self.cp_params, self.codec_params = fuse_decode_params(
@@ -277,9 +375,15 @@ class Generator:
                        "blocks": unstack_layers(self.params["blocks"])}
         self.cp_params = {**self.cp_params,
                           "blocks": unstack_layers(self.cp_params["blocks"])}
-        dec = self.codec_params["dec"]
-        self.codec_params = {**self.codec_params, "dec": {
-            **dec, "tf_blocks": unstack_layers(dec["tf_blocks"])}}
+        if "dec" in self.codec_params:       # rvq codec
+            dec = self.codec_params["dec"]
+            self.codec_params = {**self.codec_params, "dec": {
+                **dec, "tf_blocks": unstack_layers(dec["tf_blocks"])}}
+        else:                                # code2wav
+            c2w = self.codec_params["c2w"]
+            self.codec_params = {**self.codec_params, "c2w": {
+                **c2w, "pre": {**c2w["pre"],
+                               "blocks": unstack_layers(c2w["pre"]["blocks"])}}}
         if self.chunk_schedule is None:
             self.chunk_schedule = default_chunk_schedule(t)
         self.chunk_schedule = align_chunk_schedule(
@@ -301,6 +405,14 @@ class Generator:
         return sample_token(logits, generator, self.sampling)[:, None]
 
     # -- prompt embedding (once per utterance) ----------------------------
+
+    def assemble_prompt_full(self, prompt: PromptSpec):
+        """(emb [1, L_bucket, D], pad_len, trailing [1, Tb, D] or None): the
+        trailing-text buffer exists under the residual_sum protocol only."""
+        if self.cfg.talker.feedback == "residual_sum":
+            return self._assemble_published(prompt)
+        emb, pad = self._assemble_cb0(prompt)
+        return emb, pad, None
 
     def _prompt_cap(self) -> int:
         max_prompt = max(16, self.cfg.max_seq_len - 2 * max(self.chunk_schedule))
@@ -366,6 +478,114 @@ class Generator:
         padded[pad:] = emb
         return padded[None], pad
 
+    def _assemble_published(self, prompt: PromptSpec):
+        """The published dual-stream prompt (transformers
+        Qwen3OmniMoeForConditionalGeneration._get_talker_assistant_parts),
+        every row a text hidden plus a codec embedding:
+
+            txt[0..2]                            (codec stream: zeros)
+            tts_pad + [nothink, think_bos, think_eos]
+            tts_pad + speaker codec token or spk_emb row
+            tts_pad + acoustic cb0 (+ residual) codes (cloning)
+            tts_bos + codec_pad
+            txt[3]  + codec_bos                  (the first text token)
+
+        left-padded to a bucket. The rest of the text conditions during
+        decode, one row a frame, then tts_eos, then tts_pad: the returned
+        trailing buffer [1, Tb, D], whose last row is always tts_pad.
+        Returns (emb [1, L_bucket, D], pad_len, trailing)."""
+        t = self.cfg.talker
+        p = self.params
+        dev = self.device
+        toks_np = np.asarray(prompt.text_tokens)
+        if toks_np.size and (int(toks_np.max()) >= t.vocab_size
+                             or int(toks_np.min()) < 0):
+            raise ValueError(
+                f"token id {int(toks_np.max())} out of range for "
+                f"vocab_size {t.vocab_size}: tokenizer/config mismatch")
+        ctl = torch.tensor([t.tts_pad_id, t.tts_bos_id, t.tts_eos_id],
+                           device=dev)
+        pad_e, bos_e, eos_e = text_projection(p, p["text_emb"][ctl])
+        txt = (text_projection(p, p["text_emb"][torch.as_tensor(
+            toks_np.astype(np.int64), device=dev)]) if toks_np.size
+            else pad_e.new_zeros((0, pad_e.shape[-1])))
+        T = txt.shape[0]
+        # the published head is the 3 chatml rows <|im_start|>assistant\n;
+        # shorter prompts keep at least the last token for the codec_bos row
+        n_head = min(3, max(T - 1, 0))
+        codec_emb = p["codec_emb"]
+        parts = []
+        if prompt.speaker_vector is not None:
+            parts.append(torch.as_tensor(
+                np.asarray(prompt.speaker_vector, np.float32), device=dev
+            ).to(pad_e.dtype)[None, :])
+        if n_head:
+            parts.append(txt[:n_head])
+        for tok in t.codec_prompt_head:
+            parts.append((pad_e + codec_emb[tok])[None, :])
+        if prompt.speaker_token is not None:
+            parts.append((pad_e + codec_emb[int(prompt.speaker_token)])[None, :])
+        elif prompt.speaker_id is not None:
+            parts.append((pad_e + p["spk_emb"][prompt.speaker_id])[None, :])
+        if prompt.acoustic_codes is not None and prompt.acoustic_codes.size:
+            parts.append(self._acoustic_rows(prompt.acoustic_codes, pad_e))
+        parts.append((bos_e + codec_emb[t.codec_pad])[None, :])
+        first_txt = txt[n_head] if T > n_head else pad_e
+        parts.append((first_txt + codec_emb[t.codec_bos])[None, :])
+        emb = torch.cat(parts, dim=0)
+
+        L = emb.shape[0]
+        Lb = min(bucket_len(L), self._prompt_cap())
+        if L > Lb:  # over-long acoustic context: keep the head and the tail
+            keep = n_head + (prompt.speaker_vector is not None)
+            emb = torch.cat([emb[:keep], emb[L - (Lb - keep):]], dim=0)
+            L = Lb
+        pad = Lb - L
+        padded = torch.zeros((Lb, emb.shape[1]), dtype=emb.dtype, device=dev)
+        padded[pad:] = emb
+
+        # text rows after the first, cut to Tb - 2 so that the last row is
+        # always tts_pad; a cut text drops its tts_eos row too (pad forever
+        # beats repeating eos every frame)
+        Tb = t.trailing_bucket
+        all_rows = txt[n_head + 1:]
+        trail_rows = all_rows[:Tb - 2]
+        n_trail = trail_rows.shape[0]
+        buf = pad_e[None, :].repeat(Tb, 1)
+        if all_rows.shape[0] == n_trail:
+            buf[n_trail] = eos_e
+        buf[:n_trail] = trail_rows
+        return padded[None], pad, buf[None]
+
+    def _acoustic_rows(self, codes: np.ndarray, pad_e: torch.Tensor):
+        """Cloning rows of the published prompt: tts_pad + codec_emb[cb0] +
+        the code predictor's residual embeddings of the same frame, as every
+        decoded frame feeds back (depths the codes lack are left out)."""
+        cfg = self.cfg
+        codes = np.asarray(codes)                                  # [Q, T]
+        cb0 = codes[0]
+        if int(cb0.max()) >= cfg.codec.codebook_size or int(cb0.min()) < 0:
+            raise ValueError(
+                f"acoustic code {int(cb0.max())} out of range for "
+                f"codebook_size {cfg.codec.codebook_size}")
+        dev = self.device
+        rows = pad_e[None, :] + self.params["codec_emb"][
+            torch.as_tensor(cb0.astype(np.int64), device=dev)]
+        use = min(codes.shape[0] - 1, cfg.codec.num_codebooks - 1)
+        if use:
+            res = codes[1:1 + use]
+            r_size = cfg.codec.residual_codebook_size
+            if int(res.max()) >= r_size or int(res.min()) < 0:
+                raise ValueError(
+                    f"residual acoustic code {int(res.max())} out of range "
+                    f"for residual_codebook_size {r_size}")
+            tables = self.cp_params["res_emb"]
+            per_depth = torch.stack([
+                tables[d][torch.as_tensor(res[d].astype(np.int64), device=dev)]
+                for d in range(use)])
+            rows = rows + per_depth.float().sum(dim=0).to(rows.dtype)
+        return rows
+
     # -- streaming synthesis ----------------------------------------------
 
     def stream(
@@ -385,11 +605,18 @@ class Generator:
         fps = t.frames_per_step
         hop = cfg.codec.hop
         Q = cfg.codec.num_codebooks
-        emb, pad = self._assemble_cb0(prompt)
+        feedback = t.feedback == "residual_sum"
+        emb, pad, trailing = self.assemble_prompt_full(prompt)
         Lb = emb.shape[1]
+        # the talker cache (positions) and the codec's position tables
+        # (frames) both cap the utterance
         budget = min((cfg.max_seq_len - Lb) * fps,
-                     MAX_FRAMES - 2 * max(self.chunk_schedule))
+                     max_stream_frames(cfg) - 2 * max(self.chunk_schedule))
         max_frames = max(1, min(max_frames, budget))
+        # a code2wav stream leads with a run-in that the one-shot decode
+        # trims: dropped from the first audio, once per utterance
+        startup_skip = (cfg.code2wav.startup_samples
+                        if cfg.codec_arch == "code2wav" else 0)
 
         start = time.perf_counter()
         cache_k, cache_v = self._alloc_cache()
@@ -398,8 +625,13 @@ class Generator:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         cstate = init_codec_stream_state(cfg, 1, dtype=self.dtype,
                                          device=self.device)
-        tok = self._seed_tokens(hidden_last, logits, gen)    # [1, fps]
-        pos, n_frames_dev = Lb, 0
+        if feedback:
+            tok, res_sum, _ = seed_feedback_frames(
+                self.params, self.cp_params, cfg, self.sampling, hidden_last,
+                logits, gen)                                 # [1, 1], [1, 1, D]
+        else:
+            tok = self._seed_tokens(hidden_last, logits, gen)  # [1, fps]
+        pos, n_frames_dev, g = Lb, 0, 0
 
         wav_pieces: list[np.ndarray] = []
         code_pieces: list[np.ndarray] = []
@@ -410,10 +642,19 @@ class Generator:
         # discards the frames; here they are not computed)
         for chunk in chunk_plan(self.chunk_schedule, max_frames, fps):
             A = attn_bucket(pos + chunk // fps, cfg.max_seq_len)
-            (cache_k, cache_v, cstate, pos, tok, n_frames_dev, n_valid,
-             codes, wav) = make_decode_chunk_fn(cfg, chunk, self.sampling, A)(
-                self.params, self.cp_params, self.codec_params, cache_k,
-                cache_v, cstate, pos, pad, n_frames_dev, tok, gen)
+            if feedback:
+                (cache_k, cache_v, cstate, pos, tok, n_frames_dev, res_sum, g,
+                 n_valid, codes, wav) = make_decode_chunk_fn_feedback(
+                    cfg, chunk, self.sampling, A)(
+                    self.params, self.cp_params, self.codec_params, cache_k,
+                    cache_v, cstate, trailing, pos, pad, n_frames_dev, tok,
+                    res_sum, g, gen)
+            else:
+                (cache_k, cache_v, cstate, pos, tok, n_frames_dev, n_valid,
+                 codes, wav) = make_decode_chunk_fn(
+                    cfg, chunk, self.sampling, A)(
+                    self.params, self.cp_params, self.codec_params, cache_k,
+                    cache_v, cstate, pos, pad, n_frames_dev, tok, gen)
             # ONE host read per chunk: valid count, codes and PCM packed
             packed = torch.cat([
                 n_valid[:1].to(torch.int32), codes[0].reshape(-1).to(torch.int32),
@@ -430,6 +671,10 @@ class Generator:
                 wav_chunk = wav_chunk.astype(np.int16)
                 if collect_codes:
                     code_pieces.append(codes_np[:, :valid])
+                if startup_skip:
+                    cut = min(startup_skip, len(wav_chunk))
+                    wav_chunk = wav_chunk[cut:]
+                    startup_skip -= cut
                 wav_pieces.append(wav_chunk)
                 n_frames += valid
                 if ttfa is None:

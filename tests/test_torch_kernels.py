@@ -173,7 +173,7 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text('#include <stdint.h>\n#include "h.cuh"\nint f();\n')
     (tmp_path / "h.cuh").write_text("#pragma once\n")
-    kern = cuda_kernels.Kernel("k", str(src), "f", [])
+    kern = cuda_kernels.Kernel("k", str(src), {"bfloat16": "f"}, [])
     assert kern.headers() == [tmp_path / "h.cuh"]
     before = kern.library_path()
     (tmp_path / "h.cuh").write_text("#pragma once\n// edited\n")
@@ -249,6 +249,35 @@ def test_plan_kernel_a_fills_the_card_in_one_wave_at_decode():
 def test_plan_kernel_a_sends_unaligned_pointers_to_the_simple_kernel():
     plan = plan_kernel_a(1, 1024, 3072, 64, H100_SMS, aligned=False)
     assert not plan.ring and plan.k_splits == 1 and plan.blocks == 32
+
+
+@pytest.mark.parametrize("m,n,k,gs", FLAGSHIP_A_CASES[:5] + [(3, 67, 64, 16)])
+def test_plan_kernel_a_sends_float32_x_to_the_simple_kernel(m, n, k, gs):
+    """The ring's x stages hold bf16; a float32 x takes the simple path,
+    1 row a block at M=1, else 8, with no split and no workspace."""
+    plan = plan_kernel_a(m, n, k, gs, H100_SMS, bf16=False)
+    assert not plan.ring and plan.bands == 0 and plan.k_splits == 1
+    assert plan.rows == (1 if m == 1 else 8) and plan.workspace_floats == 0
+
+
+def test_kernels_bind_a_bfloat16_and_a_float32_entry():
+    assert cuda_kernels.GROUPED_QMV.symbols == {
+        "bfloat16": "qmv_grouped_bf16", "float32": "qmv_grouped_f32"}
+    assert cuda_kernels.DEQUANT_MATMUL.symbols == {
+        "bfloat16": "dequant_matmul_bf16", "float32": "dequant_matmul_f32"}
+    for k in cuda_kernels.KERNELS:
+        text = k.source.read_text()
+        assert all(f'extern "C" int {sym}(' in text for sym in k.symbols.values())
+
+
+@pytest.mark.parametrize("grouped", [True, False], ids=["kernel_a", "kernel_b"])
+def test_kernel_wrappers_refuse_other_activation_types(grouped):
+    p = _quant(1, 64, 64, 16)
+    w = pack_grouped(p) if grouped else p
+    fn, keys = ((grouped_qmv_cuda, ("qg", "sg", "bg")) if grouped
+                else (dequant_matmul_cuda, ("q", "scale", "bias")))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fn(torch.randn(2, 64).to(torch.float16), *(w[k] for k in keys))
 
 
 def test_plan_kernel_a_takes_at_most_max_m_rows():
@@ -432,3 +461,88 @@ def test_kernel_b_repeats_bit_for_bit_and_reuses_its_workspace_on_cuda(
     assert torch.equal(big, quantized_matmul(*inputs[1]))
     assert torch.equal(first, quantized_matmul(*inputs[0]))
     _close(first, quantized_matmul_ref(*inputs[0]))
+
+
+# float32 instances: f32 products and sums in another order than the plain
+# version's; 1e-5 of the output's range is ~100 f32 ulps of it
+F32_REL_TOL = 1e-5
+F32_CASES = [(1, 6144, 2048, 64), (8, 2048, 6144, 64), (40, 2051, 2048, 64),
+             (3, 67, 64, 16), (5, 33, 36, 12)]
+
+
+def _close_f32(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max()
+    assert err <= F32_REL_TOL * want.abs().max(), err
+
+
+@pytest.fixture
+def no_tf32(cuda_device):
+    """Full float32 in cuBLAS and cuDNN for the plain versions."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,gs", F32_CASES)
+def test_kernel_a_float32_matches_plain_and_repeats_on_cuda(no_tf32, m, n, k, gs):
+    x, qg, sg, bg = _card_grouped(no_tf32, 30, m, n, k, gs)
+    x = x.float() + 1e-3 * torch.randn(x.shape, device=no_tf32)
+    before = cuda_kernels.GROUPED_QMV.launches
+    got = quantized_matmul_grouped(x, qg, sg, bg)
+    assert cuda_kernels.GROUPED_QMV.launches == before + 1
+    assert torch.equal(got, grouped_qmv_cuda(x, qg, sg, bg))
+    _close_f32(got, quantized_matmul_grouped_ref(x, qg, sg, bg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,gs", F32_CASES + [(128, 1024, 3072, 64)])
+def test_kernel_b_float32_matches_plain_and_repeats_on_cuda(no_tf32, m, n, k, gs):
+    g, q, s, b = _card_weights(no_tf32, 31, n, k, gs)
+    x = torch.randn((m, k), generator=g, device=no_tf32)
+    before = cuda_kernels.DEQUANT_MATMUL.launches
+    got = quantized_matmul(x, q, s, b)
+    assert cuda_kernels.DEQUANT_MATMUL.launches == before + 1
+    assert torch.equal(got, dequant_matmul_cuda(x, q, s, b))
+    _close_f32(got, quantized_matmul_ref(x, q, s, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["grouped", "rowmajor"])
+def test_float32_int8_model_greedy_codes_equal_the_cpus_on_cuda(
+        no_tf32, layout, monkeypatch):
+    """A tiny float32 model with int8 weights (numpy-seeded): on the card
+    its linears run on the f32 kernel instances, on the CPU on the plain
+    versions; greedy codes equal token for token."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.engine.weights import tree_to
+    from qwen3_tts_tpu_torch.runtime.generate import Generator
+    from qwen3_tts_tpu_torch.runtime.prompts import build_prompt
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    monkeypatch.setenv("QWEN3_TTS_INT8_LAYOUT", layout)
+    cfg = dataclasses.replace(configs.tiny(quant=True), dtype="float32")
+    host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+    prompt = build_prompt(host.tokenizer, cfg.mode, "Hello there.",
+                          voice="ryan", speakers=cfg.speakers)
+    kernel = (cuda_kernels.GROUPED_QMV if layout == "grouped"
+              else cuda_kernels.DEQUANT_MATMUL)
+    codes = {}
+    for dev in ("cpu", no_tf32):
+        trees = (tree_to(t, dev) for t in
+                 (host.params, host.cp_params, host.codec_params))
+        gen = Generator(cfg, *trees, sampling=SamplingConfig(greedy=True))
+        before = kernel.launches
+        res = gen.synthesize(prompt, max_frames=16, collect_codes=True)
+        codes[str(dev)] = res.codes
+        assert (kernel.launches > before) == (dev != "cpu")
+    assert codes["cuda"].shape[1] > 4
+    np.testing.assert_array_equal(codes["cuda"], codes["cpu"])

@@ -4,6 +4,7 @@ WAV contract, the entry points' device rules, and the isolation of the port
 (no JAX, nothing of the JAX package)."""
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -142,19 +143,52 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tapi.Qwen3TTSModel.synthetic(tcfgs.tiny(quant=True))
 
 
+def _with_fps(cfg, fps: int):
+    return dataclasses.replace(
+        cfg, talker=dataclasses.replace(cfg.talker, frames_per_step=fps))
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda m, d: tapi.load_model("synthetic:tiny:base", device="cpu"), "12"),
-    (lambda m, d: tapi.load_model("synthetic:tiny-code2wav", device="cpu"), "8"),
+    # the code2wav decoder runs; its cloning (base) mode still waits
+    (lambda m, d: tapi.load_model("synthetic:tiny-code2wav:base",
+                                  device="cpu"), "12"),
+    # the published protocol runs at one frame a step; MTP still waits
+    (lambda m, d: tapi.Qwen3TTSModel.synthetic(
+        _with_fps(tcfgs.tiny_feedback(), 2), device="cpu"), "9"),
     (lambda m, d: tapi.load_model(d, device="cpu"), "10"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", voice="ryan",
                                       output_path=d, speed=1.3), "13"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", output_path=d,
                                       ref_audio="ref.wav"), "12"),
-], ids=["base_mode", "code2wav", "checkpoint_dir", "speed", "ref_audio"])
+], ids=["base_mode", "code2wav", "residual_sum_mtp", "checkpoint_dir",
+        "speed", "ref_audio"])
 def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
     model = tapi.load_model("synthetic:tiny", device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         call(model, temp_dir)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tapi.load_model("synthetic:tiny-code2wav", device="cpu"),
+    lambda: tapi.Qwen3TTSModel.synthetic(tcfgs.tiny_feedback(), device="cpu"),
+    lambda: tapi.Qwen3TTSModel.synthetic(tcfgs.with_code2wav(
+        tcfgs.tiny_feedback(), tcfgs.tiny_code2wav().code2wav), device="cpu"),
+], ids=["code2wav", "residual_sum", "residual_sum_code2wav"])
+def test_code2wav_and_the_published_protocol_run_through_generate_audio(
+        build, temp_dir):
+    """What used to raise (ROADMAP items 8 and 9 at one frame a step) now
+    writes its WAV: frames x hop samples, less the code2wav decoder's
+    startup run-in."""
+    model = build()
+    m = tapi.generate_audio(model=model, text=TEXT, voice="ryan",
+                            output_path=temp_dir, max_frames=12)
+    cfg = model.cfg
+    skip = cfg.code2wav.startup_samples if cfg.codec_arch == "code2wav" else 0
+    with wave.open(os.path.join(temp_dir, "audio_000.wav"), "rb") as w:
+        assert w.getnframes() == m["frames"] * cfg.codec.hop - skip
+        pcm = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    assert m["frames"] > 0 and pcm.any()
 
 
 def test_compute_format_auto_is_int8(monkeypatch):
