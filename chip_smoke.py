@@ -42,7 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    published residual_sum protocol driving it, the shape of a real
    checkpoint), each WAV frames x hop - the decoder's startup samples
    long;
-7. every (M, N, K, gs) a kernel ran on the main paths that phase 2 did not
+7. checkpoint import: a snapshot in the published layout at the geometry
+   of configs.flagship_feedback_code2wav() (~3 GB; the temp directory
+   needs ~7 GB free) is fabricated, imported with load_model(dir) (nothing
+   unmapped or synthetic, residual_sum + code2wav at that config's
+   widths), reloaded from its _tpu_native cache (every leaf bit-equal to
+   the first load's), and driven as one more main path, grouped layout;
+   phase 3 also imports a tiny published-layout snapshot on the card and
+   on the CPU, whose float32 greedy codes must be equal;
+8. every (M, N, K, gs) a kernel ran on the main paths that phase 2 did not
    cover is held against its plain version the same way (the wrappers
    record the shapes of their launches).
 
@@ -449,6 +457,69 @@ def phase_reference(torch) -> None:
                 fail(f"tiny float32, {layout}: the card's greedy codes differ "
                      f"from the CPU's (equal for {lead} frames)")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    phase_reference_import(torch)
+
+
+def widen_to_f32(torch, model) -> None:
+    """A loaded model at float32: the config's dtype replaced and every
+    bf16 leaf widened (exact)."""
+    import dataclasses
+
+    def widen(node):
+        if isinstance(node, dict):
+            return {k: widen(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(widen(v) for v in node)
+        return node.float() if node.dtype == torch.bfloat16 else node
+
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    for comp in ("params", "cp_params", "codec_params"):
+        setattr(model, comp, widen(getattr(model, comp)))
+    model._generator = None
+
+
+def phase_reference_import(torch) -> None:
+    """A tiny snapshot in the published layout imported on the card and
+    on the CPU, both widened to float32, grouped layout: the card's greedy
+    codes must equal the CPU's frame for frame."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs, load_model, prepare_segments
+    from qwen3_tts_tpu_torch.engine.fabricate import write_published_snapshot
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    cfg = configs.with_quant(configs.with_code2wav(
+        configs.tiny_feedback(), configs.tiny_code2wav().code2wav), True)
+    with tempfile.TemporaryDirectory(prefix="q3tts_tiny_snapshot_") as snap:
+        write_published_snapshot(snap, cfg, seed=9, fast=False)
+        codes = {}
+        before = cuda_kernels.GROUPED_QMV.launches
+        for dev in ("cpu", "cuda"):
+            model = load_model(snap, device=dev, cache=False)
+            if model.import_report.unmapped or model.cfg.talker.feedback \
+                    != "residual_sum":
+                fail(f"tiny published snapshot on {dev}: unmapped "
+                     f"{model.import_report.unmapped[:5]}, protocol "
+                     f"{model.cfg.talker.feedback}")
+            widen_to_f32(torch, model)
+            model.sampling = SamplingConfig(greedy=True)
+            prompts, _ = prepare_segments(model, "Hello there.", voice="ryan")
+            codes[dev] = model.generator.synthesize(
+                prompts[0], max_frames=16, collect_codes=True).codes
+    if cuda_kernels.GROUPED_QMV.launches == before:
+        fail("tiny imported snapshot: grouped_qmv never launched on the card")
+    same = codes["cuda"].shape == codes["cpu"].shape and bool(
+        (codes["cuda"] == codes["cpu"]).all())
+    log({"phase": "reference_import", "dtype": "float32", "layout": "grouped",
+         "frames": int(codes["cpu"].shape[1]),
+         "frames_card": int(codes["cuda"].shape[1]),
+         "greedy_codes_equal": same})
+    if not same:
+        fail("tiny imported snapshot, float32: the card's greedy codes "
+             "differ from the CPU's")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
 
 
 # the main paths: (model, int8 layout, the kernel that layout runs, frames
@@ -474,10 +545,10 @@ def _build(label: str):
 
 
 def phase_main_path(torch, label: str, layout: str, kernel: str,
-                    frames: int) -> tuple[dict, dict]:
-    """The model ``label`` at full width -> generate_audio under one int8
-    layout; returns every kernel's launches in the measured run and the
-    (M, N, K, gs) shapes each ran there."""
+                    frames: int, model=None) -> tuple[dict, dict]:
+    """The model ``label`` (or ``model``, already loaded) at full width ->
+    generate_audio under one int8 layout; returns every kernel's launches in
+    the measured run and the (M, N, K, gs) shapes each ran there."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import generate_audio
@@ -486,7 +557,8 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
     os.environ["QWEN3_TTS_INT8_LAYOUT"] = layout
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = _build(label)
+    if model is None:
+        model = _build(label)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     where = f"{label}, {layout}"
@@ -578,10 +650,98 @@ def phase_profile(torch, label: str) -> None:
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
 
 
+GB = 1e9
+IMPORT_DISK_NEED = 7 * GB  # the ~3 GB snapshot and its ~3.2 GB native cache
+
+
+def _same_tree(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(torch, x, y)
+                                        for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_import(torch) -> tuple[dict, dict]:
+    """Checkpoint import at full width: fabricate a snapshot in the
+    published layout at configs.flagship_feedback_code2wav()'s geometry,
+    load_model(dir) it onto the card (first import, then the _tpu_native
+    cache, which must give the same leaves bit for bit), and drive it as a
+    main path; returns that run's kernel launches and shapes."""
+    import dataclasses
+    import shutil
+
+    from qwen3_tts_tpu_torch.engine import configs, load_model
+    from qwen3_tts_tpu_torch.engine.fabricate import write_published_snapshot
+
+    ref = configs.flagship_feedback_code2wav()
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    log({"phase": "import", "step": "disk", "tmpdir": tmp,
+         "free_gb": free / GB, "needed_gb": IMPORT_DISK_NEED / GB})
+    if free < IMPORT_DISK_NEED:
+        fail(f"import: {free / GB:.1f} GB free in {tmp}, the phase needs "
+             f"{IMPORT_DISK_NEED / GB:.0f} GB")
+    with tempfile.TemporaryDirectory(prefix="q3tts_snapshot_") as snap:
+        t0 = time.perf_counter()
+        nbytes = write_published_snapshot(snap, ref, seed=0, fast=True)
+        log({"phase": "import", "step": "fabricate", "bytes": nbytes,
+             "fabricate_s": time.perf_counter() - t0})
+
+        model = load_model(snap, device="cuda")
+        torch.cuda.synchronize()
+        rep = model.import_report
+        cfg = model.cfg
+        log({"phase": "import", "step": "first_load", **model.load_times,
+             "assigned": rep.assigned, "synthetic": list(rep.synthetic),
+             "unmapped": len(rep.unmapped), "protocol": cfg.talker.feedback,
+             "codec": cfg.codec_arch, "template": rep.prompt_template["source"]})
+        widths = {
+            "talker": ("vocab_size", "hidden", "n_layers", "n_heads",
+                       "n_kv_heads", "head_dim", "ffn", "codec_vocab"),
+            "code_predictor": ("hidden", "n_layers", "n_heads", "head_dim",
+                               "ffn", "input_layout", "input_proj", "qk_norm"),
+        }
+        wrong = [f"{sec}.{f}" for sec, fields in widths.items() for f in fields
+                 if getattr(getattr(cfg, sec), f) != getattr(getattr(ref, sec), f)]
+        if cfg.code2wav != ref.code2wav:
+            wrong.append("code2wav")
+        if rep.unmapped or rep.synthetic or wrong \
+                or cfg.talker.feedback != "residual_sum" \
+                or cfg.codec_arch != "code2wav":
+            fail(f"import: unmapped {rep.unmapped[:5]}, synthetic "
+                 f"{rep.synthetic}, protocol {cfg.talker.feedback}, codec "
+                 f"{cfg.codec_arch}, fields unlike the preset {wrong}")
+        if "cache_write_s" not in model.load_times:
+            fail("import: the first load wrote no native cache")
+
+        again = load_model(snap, device="cuda")
+        torch.cuda.synchronize()
+        if "native_load_s" not in again.load_times:
+            fail(f"import: the second load did not come from the cache "
+                 f"({again.load_times})")
+        same = all(_same_tree(torch, getattr(model, c), getattr(again, c))
+                   for c in ("params", "cp_params", "codec_params"))
+        log({"phase": "import", "step": "native_load", **again.load_times,
+             "leaves_bit_equal": same,
+             "config_equal": dataclasses.asdict(again.cfg)
+             == dataclasses.asdict(cfg)})
+        if not same or again.cfg != cfg:
+            fail("import: the native cache's model differs from the import's")
+        del again
+        torch.cuda.empty_cache()
+        return phase_main_path(torch, "import:flagship_feedback_code2wav",
+                               "grouped", "grouped_qmv", MAIN_FRAMES,
+                               model=model)
+
+
 def phase_main_paths(torch) -> tuple[dict, dict]:
-    """The reference phase, then every main path; returns each kernel's
-    launches on the flagship's main path under its layout (the first path
-    that runs it), and the shapes each kernel ran on any path."""
+    """The reference phase, then every main path and the imported
+    checkpoint's; returns each kernel's launches on the flagship's main
+    path under its layout (the first path that runs it), and the shapes
+    each kernel ran on any path."""
     phase_reference(torch)
     launches: dict = {}
     shapes: dict = {}
@@ -590,6 +750,10 @@ def phase_main_paths(torch) -> tuple[dict, dict]:
         launches.setdefault(kernel, counts[kernel])
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
+    # the imported checkpoint's path: its shapes join the coverage check
+    _, ran = phase_import(torch)
+    for name, run in ran.items():
+        shapes.setdefault(name, set()).update(run)
     return launches, shapes
 
 

@@ -7,3 +7,4 @@ from .api import (  # noqa: F401
     load_model,
     prepare_segments,
 )
+from .weights import save_model  # noqa: F401

@@ -3,19 +3,22 @@
 The same call shapes as the JAX package (and the mlx_audio functions its
 reference app consumes):
 
-- ``load_model(model_path, device=None) -> model``
+- ``load_model(model_path, device=None) -> model``: a checkpoint
+  directory (an HF/MLX snapshot, cached on first import as
+  ``_tpu_native/``, or a native directory) or a ``synthetic:`` name
 - ``generate_audio(model=, text=, voice=, instruct=, speed=, ref_audio=,
   ref_text=, output_path=, ...)`` writing ``audio_000.wav`` into
   ``output_path`` and returning metrics (rtf, ttfa_s, frames, ...).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA, the default raises rather than falling
-back. The port covers synthetic models (``synthetic:tiny|flagship`` with
-the rvq codec and ``synthetic:tiny-code2wav|flagship-code2wav`` with the
-code2wav decoder, the custom and design modes) and, through
-``Qwen3TTSModel.synthetic``, any config of ``engine/configs.py`` at one
-frame per step, the published residual_sum protocol included; what waits
-for later slices raises ``NotImplementedError`` naming its ROADMAP item.
+back. The port covers checkpoints (``engine/weights.py``) and synthetic
+models (``synthetic:tiny|flagship`` with the rvq codec and
+``synthetic:tiny-code2wav|flagship-code2wav`` with the code2wav decoder)
+in the custom and design modes, and, through ``Qwen3TTSModel.synthetic``,
+any config of ``engine/configs.py`` at one frame per step, the published
+residual_sum protocol included; what waits for later slices raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -84,8 +87,9 @@ def apply_compute_format(model: "Qwen3TTSModel") -> "Qwen3TTSModel":
 
 @dataclass
 class Qwen3TTSModel:
-    """A loaded model: config, parameter trees on ``device``, tokenizer and
-    the generator (decode-layout parameters, built on first use)."""
+    """A loaded model: config, parameter trees on ``device``, tokenizer,
+    prompt template and the generator (decode-layout parameters, built on
+    first use)."""
 
     cfg: ModelConfig
     params: Any                       # talker
@@ -95,7 +99,27 @@ class Qwen3TTSModel:
     device: torch.device
     name: str = "qwen3-tts"
     sampling: Any = None              # None = SamplingConfig() defaults
+    import_report: Any = None         # weights.ImportReport of an HF import
+    template: Any = None              # runtime.prompts.PromptTemplate
+    # the speech tokenizer (cloning, ROADMAP item 12): a native directory's
+    # mapped tree and config, carried verbatim and unused
+    st_params: Any = None
+    st_cfg: Any = None
+    # speech_tokenizer.* tensors of an HF import, preserved for the cache
+    st_raw: Any = field(default=None, repr=False)
+    load_times: dict = field(default_factory=dict)   # seconds of each step
     _generator: Any = field(default=None, repr=False)
+
+    def to(self, device) -> "Qwen3TTSModel":
+        """Move the parameter trees to ``device`` (in place)."""
+        from .weights import tree_to
+
+        self.device = torch.device(device)
+        self.params = tree_to(self.params, self.device)
+        self.cp_params = tree_to(self.cp_params, self.device)
+        self.codec_params = tree_to(self.codec_params, self.device)
+        self._generator = None
+        return self
 
     @property
     def generator(self):
@@ -133,17 +157,27 @@ class Qwen3TTSModel:
         ))
 
 
-def load_model(model_path: str, device=None, *, seed: int = 0) -> Qwen3TTSModel:
-    """Build a synthetic model from ``synthetic:<size>[:custom|design]``,
-    size one of tiny, flagship, tiny-code2wav, flagship-code2wav, on
-    ``device`` (default: the CUDA device)."""
+def load_model(model_path: str, device=None, *, seed: int = 0,
+               **kwargs) -> Qwen3TTSModel:
+    """Load a checkpoint directory (HF/MLX snapshot or native format;
+    ``kwargs`` go to ``weights.load_checkpoint``: ``mode``, ``cache``,
+    ``allow_partial``) or build a synthetic model from
+    ``synthetic:<size>[:custom|design]``, size one of tiny, flagship,
+    tiny-code2wav, flagship-code2wav, on ``device`` (default: the CUDA
+    device)."""
     dev = resolve_device(device)
     m = _SYNTH_RE.match(model_path or "")
     if not m:
-        raise NotImplementedError(
-            f"{model_path!r}: checkpoint directories wait for checkpoint "
-            "import (ROADMAP queue A, item 10)"
-        )
+        if kwargs.get("mode") == "base":
+            raise NotImplementedError(f"the base mode: {_CLONING}")
+        if not os.path.isdir(model_path or ""):
+            raise FileNotFoundError(f"model path does not exist: {model_path}")
+        from .weights import load_checkpoint
+
+        model = load_checkpoint(model_path, device=dev, seed=seed, **kwargs)
+        if model.cfg.mode == "base":  # a native directory of a base model
+            raise NotImplementedError(f"the base mode: {_CLONING}")
+        return apply_compute_format(model)
     size, mode = m.group(1), m.group(2) or "custom"
     if mode == "base":
         raise NotImplementedError(f"the base mode: {_CLONING}")
@@ -224,6 +258,7 @@ def prepare_segments(
             speaker_tokens=(dict(cfg.talker.speaker_tokens)
                             if cfg.talker.speaker_tokens else None),
             instruct=instruct, speed=speed, ref_text=ref_text,
+            template=model.template,
         )
         for segment in segments
     ]

@@ -1,0 +1,431 @@
+"""Fabricate checkpoint snapshots in the layouts the importer reads.
+
+No real weights are in the repository, so import is held against
+fabricated snapshots: MLX-quantized (uint32-packed) linears, dense norms
+and embeddings, per-component ``config.json`` sections, written with
+numpy and ``engine/safetensors_io.py`` alone.
+
+- ``write_mlx_style_checkpoint`` / ``fabricate_full_checkpoint``: the JAX
+  package's fixtures (the synthetic cb0 layout with the rvq codec);
+- ``write_published_snapshot``: the published layout that switches the
+  importer to the residual_sum protocol and the code2wav decoder: the
+  two-position code predictor (no input projection, no qk-norm) under its
+  published names, the talker's text_projection MLP, the think and tts
+  ids, a speaker-name map, ``code2wav.*`` under transformers'
+  Qwen3OmniMoeCode2Wav module paths with its ``code2wav_config``, and
+  ``tts_prompts.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from .safetensors_io import save_file
+
+
+def hf_config_dict(cfg) -> dict:
+    """config.json describing all three components of ``cfg`` the way a
+    snapshot does (per-component sections)."""
+    t, cp, cc = cfg.talker, cfg.code_predictor, cfg.codec
+    return {
+        "vocab_size": t.vocab_size,
+        "hidden_size": t.hidden,
+        "num_hidden_layers": t.n_layers,
+        "num_attention_heads": t.n_heads,
+        "num_key_value_heads": t.n_kv_heads,
+        "head_dim": t.head_dim,
+        "intermediate_size": t.ffn,
+        "rope_theta": t.rope_theta,
+        "rms_norm_eps": t.rms_eps,
+        "codec_vocab_size": t.codec_vocab,
+        "codec_bos_token_id": t.codec_bos,
+        "codec_eos_token_id": t.codec_eos,
+        "codec_pad_token_id": t.codec_pad,
+        "num_speakers": t.n_speakers,
+        "code_predictor_config": {
+            "hidden_size": cp.hidden,
+            "num_hidden_layers": cp.n_layers,
+            "num_attention_heads": cp.n_heads,
+            "head_dim": cp.head_dim,
+            "intermediate_size": cp.ffn,
+            "rms_norm_eps": cp.rms_eps,
+            "rope_theta": cp.rope_theta,
+        },
+        "codec_config": {
+            "sample_rate": cc.sample_rate,
+            "frame_rate": cc.frame_rate,
+            "num_codebooks": cc.num_codebooks,
+            "codebook_size": cc.codebook_size,
+            "residual_codebook_size": cc.residual_codebook_size,
+            "latent_dim": cc.latent_dim,
+            "upsample_rates": list(cc.upsample_rates),
+            "decoder_channels": list(cc.decoder_channels),
+            "decoder_kernel": cc.decoder_kernel,
+            "n_transformer_layers": cc.n_transformer_layers,
+            "transformer_heads": cc.transformer_heads,
+        },
+        "quantization": {"bits": 8, "group_size": cfg.quant.group_size},
+    }
+
+
+def add_cp_tensors(tensors: dict, cfg, rng) -> None:
+    """Qwen-style code-predictor tensors under ``code_predictor.`` (dense
+    f32; the importer quantizes them into quantized slots)."""
+    cp, t, cc = cfg.code_predictor, cfg.talker, cfg.codec
+    q_dim = cp.n_heads * cp.head_dim
+    n_res = cc.num_codebooks - 1
+
+    def lin(name, o, i):
+        tensors[f"code_predictor.{name}.weight"] = rng.normal(
+            0, 0.05, (o, i)).astype(np.float32)
+
+    lin("in_proj", cp.hidden, t.hidden)
+    tensors["code_predictor.cb0_embedding.weight"] = rng.normal(
+        0, 0.02, (cc.codebook_size, cp.hidden)).astype(np.float32)
+    tensors["code_predictor.res_embedding.weight"] = rng.normal(
+        0, 0.02, (n_res, cc.residual_codebook_size, cp.hidden)).astype(np.float32)
+    tensors["code_predictor.heads.weight"] = rng.normal(
+        0, 0.02, (n_res, cc.residual_codebook_size, cp.hidden)).astype(np.float32)
+    tensors["code_predictor.norm.weight"] = np.ones(cp.hidden, np.float32)
+    for i in range(cp.n_layers):
+        lin(f"layers.{i}.self_attn.q_proj", q_dim, cp.hidden)
+        lin(f"layers.{i}.self_attn.k_proj", q_dim, cp.hidden)
+        lin(f"layers.{i}.self_attn.v_proj", q_dim, cp.hidden)
+        lin(f"layers.{i}.self_attn.o_proj", cp.hidden, q_dim)
+        lin(f"layers.{i}.mlp.gate_proj", cp.ffn, cp.hidden)
+        lin(f"layers.{i}.mlp.up_proj", cp.ffn, cp.hidden)
+        lin(f"layers.{i}.mlp.down_proj", cp.hidden, cp.ffn)
+        p = f"code_predictor.layers.{i}"
+        for norm, n in (("self_attn.q_norm", cp.head_dim),
+                        ("self_attn.k_norm", cp.head_dim),
+                        ("input_layernorm", cp.hidden),
+                        ("post_attention_layernorm", cp.hidden)):
+            tensors[f"{p}.{norm}.weight"] = np.ones(n, np.float32)
+
+
+def add_codec_tensors(tensors: dict, cfg, seed: int) -> None:
+    """Codec tensors as dotted tree paths under ``codec.`` (f32): the tree
+    of ``init_codec`` with the cloning encoder, as the JAX package's
+    fixtures write it."""
+    from ..models.codec import init_codec
+    from .weights import flatten_tree
+
+    codec = init_codec(cfg, seed=seed, encoder=True)
+    for path, arr in flatten_tree(codec).items():
+        tensors["codec." + path.replace("/", ".")] = arr.float().numpy()
+
+
+def _pack_u8(codes: np.ndarray) -> np.ndarray:
+    """uint8 codes [out, in] -> MLX uint32 words [out, in/4]."""
+    return np.ascontiguousarray(codes).view("<u4")
+
+
+def write_mlx_style_checkpoint(path: str, cfg, seed: int = 11,
+                               full: bool = False, extra_tensors=None,
+                               config_extra=None):
+    """An MLX-layout talker checkpoint (uint32-packed quantized linears +
+    dense norms and embeddings); ``full`` adds the code predictor and the
+    codec. Returns (tensors, dense) where ``dense`` holds the dequantized
+    weights of the quantized linears."""
+    from ..ops.quant import dequantize, quantize_weights
+
+    t = cfg.talker
+    rng = np.random.default_rng(seed)
+    gs = cfg.quant.group_size
+    tensors: dict = {}
+    dense: dict = {}
+
+    def pack_linear(base, out_dim, in_dim):
+        w = rng.normal(0, 0.05, (out_dim, in_dim)).astype(np.float32)
+        qp = quantize_weights(w, group_size=gs, bits=8)
+        tensors[f"{base}.weight"] = _pack_u8(qp["q"])
+        tensors[f"{base}.scales"] = qp["scale"]
+        tensors[f"{base}.biases"] = qp["bias"]
+        dense[base] = dequantize(qp, torch.float32).numpy()
+
+    tensors["model.embed_tokens.weight"] = rng.normal(
+        0, 0.02, (t.vocab_size, t.hidden)).astype(np.float32)
+    tensors["codec_embedding.weight"] = rng.normal(
+        0, 0.02, (t.codec_vocab, t.hidden)).astype(np.float32)
+    tensors["model.norm.weight"] = np.ones(t.hidden, np.float32)
+    pack_linear("lm_head", t.codec_vocab, t.hidden)
+    for i in range(t.n_layers):
+        p = f"model.layers.{i}"
+        pack_linear(f"{p}.self_attn.q_proj", t.q_dim, t.hidden)
+        pack_linear(f"{p}.self_attn.k_proj", t.kv_dim, t.hidden)
+        pack_linear(f"{p}.self_attn.v_proj", t.kv_dim, t.hidden)
+        pack_linear(f"{p}.self_attn.o_proj", t.hidden, t.q_dim)
+        pack_linear(f"{p}.mlp.gate_proj", t.ffn, t.hidden)
+        pack_linear(f"{p}.mlp.up_proj", t.ffn, t.hidden)
+        pack_linear(f"{p}.mlp.down_proj", t.hidden, t.ffn)
+        for norm, n in (("self_attn.q_norm", t.head_dim),
+                        ("self_attn.k_norm", t.head_dim),
+                        ("input_layernorm", t.hidden),
+                        ("post_attention_layernorm", t.hidden)):
+            tensors[f"{p}.{norm}.weight"] = np.ones(n, np.float32)
+
+    if full:
+        tensors["speaker_embedding.weight"] = rng.normal(
+            0, 0.02, (t.n_speakers, t.hidden)).astype(np.float32)
+        add_cp_tensors(tensors, cfg, rng)
+        add_codec_tensors(tensors, cfg, seed + 5)
+
+    if extra_tensors:
+        tensors.update(extra_tensors)
+    hf = hf_config_dict(cfg)
+    if config_extra:
+        hf.update(config_extra)
+    os.makedirs(path, exist_ok=True)
+    save_file(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return tensors, dense
+
+
+def _write_prompts(path: str) -> None:
+    with open(os.path.join(path, "tts_prompts.json"), "w") as f:
+        json.dump({
+            "custom": "<|instruct|>{instruct}<|/instruct|>{text}",
+            "design": "<|voice|>{instruct}<|/voice|>{text}",
+            "base": "<|ref|>{ref_text}<|/ref|>{text}",
+        }, f)
+
+
+def fabricate_full_checkpoint(path: str, *, seed: int = 11,
+                              template: bool = True) -> str:
+    """A complete tiny quantized three-component snapshot (talker, code
+    predictor, rvq codec) plus prompt templates. Its two
+    ``speech_tokenizer.*`` tensors are in no layout the importer maps (the
+    JAX package's fixture writes a Mimi encoder there): they are kept
+    verbatim."""
+    from .configs import tiny
+
+    cfg = tiny("custom", quant=True)
+    rng = np.random.default_rng(seed + 9)
+    st = {"speech_tokenizer.encoder.layers.0.weight":
+          rng.normal(0, 0.05, (8, 8)).astype(np.float32),
+          "speech_tokenizer.quantizer.codebook":
+          rng.normal(0, 0.05, (16, 8)).astype(np.float32)}
+    write_mlx_style_checkpoint(path, cfg, seed=seed, full=True,
+                               extra_tensors=st)
+    if template:
+        _write_prompts(path)
+    return path
+
+
+# --------------------------------------------------------------------------
+# the published layout
+# --------------------------------------------------------------------------
+
+_LINEARS = (("self_attn.q_proj", "attn", "q"), ("self_attn.k_proj", "attn", "k"),
+            ("self_attn.v_proj", "attn", "v"), ("self_attn.o_proj", "attn", "o"),
+            ("mlp.gate_proj", "mlp", "gate"), ("mlp.up_proj", "mlp", "up"),
+            ("mlp.down_proj", "mlp", "down"))
+
+
+def _c2w_hf_names(c2w_cfg) -> dict[str, str]:
+    """Dotted ``c2w`` tree path -> transformers Qwen3OmniMoeCode2Wav name,
+    for the conv stacks (the inverse of the importer's translation)."""
+    from .weights import _C2W_CONVNEXT, _C2W_RES_UNIT, _c2w_native_name
+
+    n = len(c2w_cfg.upsample_rates)
+    names = [f"decoder.0.conv.{s}" for s in ("weight", "bias")]
+    names += [f"decoder.{n + 1}.{s}" for s in ("alpha", "beta")]
+    names += [f"decoder.{n + 2}.conv.{s}" for s in ("weight", "bias")]
+    for i in range(len(c2w_cfg.upsampling_ratios)):
+        names += [f"upsample.{i}.0.conv.{s}" for s in ("weight", "bias")]
+        names += [f"upsample.{i}.1.{k}" for k in _C2W_CONVNEXT]
+    for b in range(1, n + 1):
+        names += [f"decoder.{b}.block.0.{s}" for s in ("alpha", "beta")]
+        names += [f"decoder.{b}.block.1.conv.{s}" for s in ("weight", "bias")]
+        names += [f"decoder.{b}.block.{j}.{k}" for j in (2, 3, 4)
+                  for k in _C2W_RES_UNIT]
+    return {_c2w_native_name(hf, n): hf for hf in names}
+
+
+class _Values:
+    """Leaf values of a fabricated snapshot: ``fast`` draws float32 normals
+    and writes bf16 (as MLX snapshots store embeddings, scales and biases);
+    otherwise float64 normals rounded to float32."""
+
+    def __init__(self, seed: int, fast: bool):
+        self.rng = np.random.default_rng(seed)
+        self.fast = fast
+
+    def normal(self, shape, std: float):
+        if self.fast:
+            a = self.rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(std)
+            return torch.from_numpy(a).to(torch.bfloat16)
+        return self.rng.normal(0.0, std, size=shape).astype(np.float32)
+
+    def const(self, shape, value: float):
+        a = np.full(shape, value, np.float32)
+        return torch.from_numpy(a).to(torch.bfloat16) if self.fast else a
+
+    def linear(self, tensors: dict, base: str, out_dim: int, in_dim: int,
+               gs: int, quantized: bool, std: float = 0.05) -> None:
+        """One linear: MLX-quantized (uint32 codes, per-group scales and
+        biases) or dense."""
+        if not quantized:
+            tensors[f"{base}.weight"] = self.normal((out_dim, in_dim), std)
+            return
+        g = in_dim // gs
+        if self.fast:
+            tensors[f"{base}.weight"] = self.rng.integers(
+                0, 2**32, (out_dim, in_dim // 4), dtype=np.uint32)
+            tensors[f"{base}.scales"] = self.const((out_dim, g), 2 * std / 255)
+            tensors[f"{base}.biases"] = self.const((out_dim, g), -std)
+            return
+        from ..ops.quant import quantize_weights
+
+        qp = quantize_weights(self.normal((out_dim, in_dim), std),
+                              group_size=gs, bits=8)
+        tensors[f"{base}.weight"] = _pack_u8(qp["q"])
+        tensors[f"{base}.scales"] = qp["scale"]
+        tensors[f"{base}.biases"] = qp["bias"]
+
+
+def published_config_dict(cfg) -> dict:
+    """config.json of a snapshot in the published layout: ``hf_config_dict``
+    with the talker's think markers and speaker-name map, the tts ids and
+    a ``code2wav_config`` section."""
+    t, c = cfg.talker, cfg.code2wav
+    hf = hf_config_dict(cfg)
+    hf.update({
+        "codec_nothink_id": t.codec_nothink,
+        "codec_think_bos_id": t.codec_think_bos,
+        "codec_think_eos_id": t.codec_think_eos,
+        "speaker_id": {name: t.codec_nothink - 1 - i
+                       for i, name in enumerate(cfg.speakers[:4])},
+        "tts_pad_token_id": t.tts_pad_id,
+        "tts_bos_token_id": t.tts_bos_id,
+        "tts_eos_token_id": t.tts_eos_id,
+        "code2wav_config": {
+            "codebook_size": c.codebook_size,
+            "num_quantizers": c.num_quantizers,
+            "hidden_size": c.hidden,
+            "num_hidden_layers": c.n_layers,
+            "num_attention_heads": c.n_heads,
+            "num_key_value_heads": c.n_kv_heads,
+            "intermediate_size": c.ffn,
+            "rope_theta": c.rope_theta,
+            "rms_norm_eps": c.rms_eps,
+            "sliding_window": c.sliding_window,
+            "layer_scale_initial_scale": c.layer_scale_init,
+            "upsample_rates": list(c.upsample_rates),
+            "upsampling_ratios": list(c.upsampling_ratios),
+            "decoder_dim": c.decoder_dim,
+            "sample_rate": c.sample_rate,
+            "max_position_embeddings": c.max_positions,
+        },
+    })
+    return hf
+
+
+def write_published_snapshot(path: str, cfg, seed: int = 0,
+                             fast: bool = True) -> int:
+    """Write a snapshot of ``cfg`` (a residual_sum + code2wav config, e.g.
+    ``configs.flagship_feedback_code2wav()``) in the published layout into
+    ``path``; returns the bytes written.
+
+    ``fast`` draws the packed codes directly (uniform uint32 words with a
+    constant scale/bias grid, as the synthetic ``fast`` init) and writes
+    bf16 tables, scales and biases, so that a full-width snapshot is
+    written in seconds; otherwise the talker's linears are quantized from
+    normal draws and the code predictor's are dense f32, as the JAX
+    package's published-layout test fixtures write them."""
+    from ..models.code2wav import init_code2wav
+    from ..models.init import InitPlan
+    from .weights import _C2W_BLOCK_NORMS, _leaves
+
+    t, cp, c2w = cfg.talker, cfg.code_predictor, cfg.code2wav
+    if (t.feedback != "residual_sum" or cfg.codec_arch != "code2wav"
+            or cp.hidden != t.hidden):
+        raise ValueError("write_published_snapshot needs a residual_sum "
+                         "config with the code2wav decoder")
+    v = _Values(seed, fast)
+    gs = cfg.quant.group_size
+    tensors: dict = {}
+
+    # talker
+    tensors["talker.model.embed_tokens.weight"] = v.normal(
+        (t.vocab_size, t.hidden), 0.02)
+    tensors["talker.codec_embedding.weight"] = v.normal(
+        (t.codec_vocab, t.hidden), 0.02)
+    tensors["talker.speaker_embedding.weight"] = v.normal(
+        (t.n_speakers, t.hidden), 0.02)
+    tensors["talker.model.norm.weight"] = v.const((t.hidden,), 1.0)
+    v.linear(tensors, "talker.codec_head", t.codec_vocab, t.hidden, gs, True)
+    dims = {"q": (t.q_dim, t.hidden), "k": (t.kv_dim, t.hidden),
+            "v": (t.kv_dim, t.hidden), "o": (t.hidden, t.q_dim),
+            "gate": (t.ffn, t.hidden), "up": (t.ffn, t.hidden),
+            "down": (t.hidden, t.ffn)}
+    for i in range(t.n_layers):
+        p = f"talker.model.layers.{i}"
+        for hf, _, key in _LINEARS:
+            v.linear(tensors, f"{p}.{hf}", *dims[key], gs, True)
+        for norm, n in (("self_attn.q_norm", t.head_dim),
+                        ("self_attn.k_norm", t.head_dim),
+                        ("input_layernorm", t.hidden),
+                        ("post_attention_layernorm", t.hidden)):
+            tensors[f"{p}.{norm}.weight"] = v.const((n,), 1.0)
+    for fc, (o, i) in (("linear_fc1", (t.ffn, t.hidden)),
+                       ("linear_fc2", (t.hidden, t.ffn))):
+        tensors[f"talker.text_projection.{fc}.weight"] = v.normal((o, i), 0.05)
+        tensors[f"talker.text_projection.{fc}.bias"] = v.normal((o,), 0.01)
+
+    # code predictor: the two-position layout, no in_proj, no qk-norm
+    n_res = cfg.codec.num_codebooks - 1
+    q_dim = cp.n_heads * cp.head_dim
+    cp_dims = {"q": (q_dim, cp.hidden), "k": (q_dim, cp.hidden),
+               "v": (q_dim, cp.hidden), "o": (cp.hidden, q_dim),
+               "gate": (cp.ffn, cp.hidden), "up": (cp.ffn, cp.hidden),
+               "down": (cp.hidden, cp.ffn)}
+    tensors["code_predictor.cb0_embedding.weight"] = v.normal(
+        (cfg.codec.codebook_size, cp.hidden), 0.02)
+    for i in range(n_res):
+        tensors[f"code_predictor.model.codec_embedding.{i}.weight"] = v.normal(
+            (cfg.codec.residual_codebook_size, cp.hidden), 0.02)
+        tensors[f"code_predictor.lm_head.{i}.weight"] = v.normal(
+            (cfg.codec.residual_codebook_size, cp.hidden), 0.02)
+    tensors["code_predictor.model.norm.weight"] = v.const((cp.hidden,), 1.0)
+    for i in range(cp.n_layers):
+        p = f"code_predictor.model.layers.{i}"
+        for hf, _, key in _LINEARS:
+            v.linear(tensors, f"{p}.{hf}", *cp_dims[key], min(gs, cp.hidden),
+                     fast)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{p}.{norm}.weight"] = v.const((cp.hidden,), 1.0)
+
+    # code2wav: the drawn leaves of its tree get fresh values, the exact
+    # ones (norms, layer scales, snake parameters) their init values
+    shapes = init_code2wav(c2w, 0, torch.float32, InitPlan("template"))
+    drawn = init_code2wav(c2w, 0, torch.float32, InitPlan("index"))
+    values = {}
+    for (key, leaf), (_, idx) in zip(_leaves(shapes), _leaves(drawn)):
+        values[key] = (v.normal(tuple(leaf.shape), 0.02) if idx.max() >= 0
+                        else v.const(tuple(leaf.shape), float(leaf.flatten()[0])))
+    pre = "code2wav.pre_transformer"
+    tensors["code2wav.code_embedding.weight"] = values[("code_emb",)]
+    tensors[f"{pre}.norm.weight"] = values[("pre", "ln_f")]
+    for i in range(c2w.n_layers):
+        for hf, grp, key in _LINEARS:
+            tensors[f"{pre}.layers.{i}.{hf}.weight"] = values[
+                ("pre", "blocks", grp, key, "w")][i]
+        for hf, key in _C2W_BLOCK_NORMS.items():
+            tensors[f"{pre}.layers.{i}.{hf}"] = values[("pre", "blocks", key)][i]
+    for native, hf in _c2w_hf_names(c2w).items():
+        key = tuple(int(p) if p.isdigit() else p for p in native.split("."))
+        tensors[f"code2wav.{hf}"] = values[key]
+
+    os.makedirs(path, exist_ok=True)
+    save_file(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(published_config_dict(cfg), f)
+    _write_prompts(path)
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))

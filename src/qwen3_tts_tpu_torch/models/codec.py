@@ -8,8 +8,9 @@ Causal 1-D convolutions over ``[B, T, C]`` (the JAX package's layout at the
 public functions; weights ``[k, C_in, C_out]``), nearest-repeat upsampling,
 and a causal latent transformer so the decoder streams chunk by chunk. The
 cloning-side encoder (``enc``) waits for the cloning slice (ROADMAP queue A,
-item 12); ``init_codec`` on the host still advances its RNG past the
-encoder's draws, so ``spk_proj`` gets the JAX package's values.
+item 12); ``init_codec`` on the host still draws the encoder, so
+``spk_proj`` gets the JAX package's values, and keeps its tree when a
+checkpoint import asks for it.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 
 from ..engine.configs import CodecConfig, ModelConfig, torch_dtype
 from .code2wav import code2wav_stream_step, init_code2wav, stream_state_init
-from .init import make_init, stack_trees
+from .init import DeviceInit, make_init, stack_trees
 from .layers import rmsnorm, rope_slice, rope_tables, transformer_block, unstack_layers
 
 Params = dict[str, Any]
@@ -97,29 +98,39 @@ def _tf_block_init(init, d: int, heads: int, head_dim: int, ffn: int) -> Params:
     }
 
 
-def _skip_encoder_draws(init, cc: CodecConfig) -> None:
-    """Advance a host init past the JAX package's encoder draws, in its
-    order (stages, then in_conv, then proj)."""
+def _init_encoder(init, cc: CodecConfig) -> Params:
+    """The cloning-side encoder's tree, drawn in the JAX package's order
+    (stages, then in_conv, then proj)."""
     enc_channels = list(reversed(cc.decoder_channels))
+    stages = []
     for i, rate in enumerate(reversed(cc.upsample_rates)):
-        _conv_init(init, 2 * rate + 1, enc_channels[i], enc_channels[i + 1])
-        _resunit_init(init, enc_channels[i + 1], cc.decoder_kernel)
-    _conv_init(init, 7, 1, enc_channels[0])
-    _conv_init(init, 1, enc_channels[-1], cc.latent_dim)
+        stages.append({
+            "down": _conv_init(init, 2 * rate + 1, enc_channels[i],
+                               enc_channels[i + 1]),
+            "res": _resunit_init(init, enc_channels[i + 1], cc.decoder_kernel),
+        })
+    in_conv = _conv_init(init, 7, 1, enc_channels[0])
+    return {"in_conv": in_conv, "stages": stages,
+            "proj": _conv_init(init, 1, enc_channels[-1], cc.latent_dim),
+            "ln": init.ones(cc.latent_dim)}
 
 
-def init_codec(cfg: ModelConfig, seed: int = 2, device=None) -> Params:
+def init_codec(cfg: ModelConfig, seed: int = 2, device=None,
+               encoder: bool = False) -> Params:
     """Random-init codec decoder (``dec`` for the rvq codec, ``c2w`` for
     code2wav) and ``spk_proj`` parameters (see talker.init_talker for
-    ``device``)."""
+    ``device``). ``encoder`` keeps the cloning encoder's tree (``enc``,
+    which the runtime does not read yet) for a checkpoint import to fill;
+    its values are drawn on the host either way, so ``spk_proj`` gets the
+    JAX package's values."""
     cc = cfg.codec
     init = make_init(seed, torch_dtype(cfg), device)
+    draw_enc = encoder or not isinstance(init, DeviceInit)
     if cfg.codec_arch == "code2wav":
         # the JAX package draws c2w from its own rng of the same seed
         c2w = init_code2wav(cfg.code2wav, seed, torch_dtype(cfg), device)
-        if device is None:
-            _skip_encoder_draws(init, cc)
-        return {"c2w": c2w, "spk_proj": {
+        enc = _init_encoder(init, cc) if draw_enc else None
+        return {"c2w": c2w, **({"enc": enc} if encoder else {}), "spk_proj": {
             "w": init.normal((cfg.talker.hidden, cc.latent_dim), 0.02)}}
     head_dim = cc.latent_dim // cc.transformer_heads
     ffn = 4 * cc.latent_dim
@@ -147,10 +158,10 @@ def init_codec(cfg: ModelConfig, seed: int = 2, device=None) -> Params:
         "out_conv": _conv_init(init, cc.decoder_kernel,
                                cc.decoder_channels[-1], 1),
     }
-    if device is None:
-        _skip_encoder_draws(init, cc)
+    enc = _init_encoder(init, cc) if draw_enc else None
     return {
         "dec": dec,
+        **({"enc": enc} if encoder else {}),
         "spk_proj": {"w": init.normal((cfg.talker.hidden, cc.latent_dim), 0.02)},
     }
 

@@ -69,6 +69,28 @@ def dequantize(p: QuantParams, dtype=torch.bfloat16) -> torch.Tensor:
     return w.reshape(*lead, out_dim, in_dim).to(dtype)
 
 
+def unpack_mlx_uint32(packed, bits: int, in_dim: int | None = None) -> torch.Tensor:
+    """MLX's uint32-packed codes -> uint8 codes, ``32 / bits`` per word,
+    little-endian within the word (element i in bits [i*bits, (i+1)*bits)),
+    cut to ``in_dim`` along the last axis. At 8 bits this is a byte view."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"unpack_mlx_uint32: bits={bits}, expected 2, 4 or 8")
+    packed = torch.as_tensor(packed)
+    if packed.dtype != torch.uint32:
+        packed = torch.from_numpy(
+            np.ascontiguousarray(packed.numpy().astype(np.uint32)))
+    packed = packed.contiguous()
+    if bits == 8:
+        codes = packed.view(torch.uint8)
+    else:
+        words = packed.numpy()
+        parts = [((words >> (bits * i)) & ((1 << bits) - 1)).astype(np.uint8)
+                 for i in range(32 // bits)]
+        codes = torch.from_numpy(
+            np.stack(parts, axis=-1).reshape(*words.shape[:-1], -1))
+    return codes if in_dim is None else codes[..., :in_dim]
+
+
 def dequantize_tree(params, dtype=torch.bfloat16):
     """Replace every quantized linear in a param tree by a dense ``{"w"}``
     dict of ``dtype`` (the bf16 compute format)."""

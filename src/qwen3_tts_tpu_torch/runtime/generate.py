@@ -629,6 +629,9 @@ class Generator:
             tok, res_sum, _ = seed_feedback_frames(
                 self.params, self.cp_params, cfg, self.sampling, hidden_last,
                 logits, gen)                                 # [1, 1], [1, 1, D]
+            # the feedback carry holds the config's dtype, as in the JAX
+            # package, also where imported float32 tables widen the hidden
+            res_sum = res_sum.to(self.dtype)
         else:
             tok = self._seed_tokens(hidden_last, logits, gen)  # [1, fps]
         pos, n_frames_dev, g = Lb, 0, 0

@@ -156,7 +156,9 @@ def _with_fps(cfg, fps: int):
     # the published protocol runs at one frame a step; MTP still waits
     (lambda m, d: tapi.Qwen3TTSModel.synthetic(
         _with_fps(tcfgs.tiny_feedback(), 2), device="cpu"), "9"),
-    (lambda m, d: tapi.load_model(d, device="cpu"), "10"),
+    # checkpoint directories load (test_torch_import_slice.py); cloning
+    # from one still waits
+    (lambda m, d: tapi.load_model(d, device="cpu", mode="base"), "12"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", voice="ryan",
                                       output_path=d, speed=1.3), "13"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", output_path=d,
@@ -167,6 +169,25 @@ def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
     model = tapi.load_model("synthetic:tiny", device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         call(model, temp_dir)
+
+
+def test_a_checkpoint_directory_loads_and_its_cloning_names_item_12(temp_dir):
+    """What raised for item 10 loads now; a missing path is not found, and
+    the loaded model's cloning still waits for item 12."""
+    from qwen3_tts_tpu_torch.engine.fabricate import fabricate_full_checkpoint
+
+    with pytest.raises(FileNotFoundError):
+        tapi.load_model(os.path.join(temp_dir, "absent"), device="cpu")
+    snap = fabricate_full_checkpoint(os.path.join(temp_dir, "snap"))
+    with pytest.warns(UserWarning, match="speech_tokenizer"):
+        model = tapi.load_model(snap, device="cpu")
+    assert model.import_report.unmapped == []
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tapi.generate_audio(model=model, text="x", output_path=temp_dir,
+                            ref_audio="ref.wav")
+    m = tapi.generate_audio(model=model, text=TEXT, voice="ryan",
+                            output_path=temp_dir, max_frames=4)
+    assert m["frames"] > 0
 
 
 @pytest.mark.parametrize("build", [

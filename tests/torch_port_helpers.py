@@ -36,3 +36,41 @@ def tame_codec(codec_np: dict, factor: float = CODEC_CONV_SCALE) -> dict:
                     "res": {c: conv(s["res"][c]) for c in ("c1", "c2")}}
                    for s in dec["stages"]],
     }}
+
+
+def leaf_bits(tree) -> dict:
+    """{path: (dtype name, shape, raw bytes)} of every leaf of a JAX numpy
+    tree or a port tensor tree; bf16 leaves through a uint16 view, so equal
+    entries mean bit-identical leaves."""
+    import numpy as np
+    import torch
+
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}{k}/")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}{i}/")
+        elif isinstance(node, torch.Tensor):
+            t = node.detach().cpu().contiguous()
+            raw = t.view(torch.uint16) if t.dtype == torch.bfloat16 else t
+            out[path[:-1]] = (str(t.dtype).replace("torch.", ""),
+                              tuple(t.shape), raw.numpy().tobytes())
+        else:
+            a = np.ascontiguousarray(np.asarray(node))
+            raw = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+            out[path[:-1]] = (a.dtype.name, a.shape, raw.tobytes())
+
+    walk(tree, "")
+    return out
+
+
+def assert_trees_equal(got, want) -> None:
+    """Same leaf paths, dtypes, shapes and bits."""
+    g, w = leaf_bits(got), leaf_bits(want)
+    assert sorted(g) == sorted(w), (sorted(set(g) ^ set(w)))[:10]
+    bad = [(k, g[k][:2], w[k][:2]) for k in w if g[k] != w[k]]
+    assert not bad, f"{len(bad)} leaves differ, e.g. {bad[:5]}"
