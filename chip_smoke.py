@@ -50,9 +50,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the first load's), and driven as one more main path, grouped layout;
    phase 3 also imports a tiny published-layout snapshot on the card and
    on the CPU, whose float32 greedy codes must be equal;
-8. every (M, N, K, gs) a kernel ran on the main paths that phase 2 did not
-   cover is held against its plain version the same way (the wrappers
-   record the shapes of their launches).
+8. serving (runtime/serving.py::ServingEngine): tiny float32 models with
+   int8 weights under the grouped layout (cb0 + rvq, residual_sum +
+   code2wav), four streams of different budgets, one joining mid-flight:
+   each stream's greedy codes on the card must equal that model's
+   single-stream codes on the card and the same engine's codes on the CPU
+   (a bf16 run prints its agreement only); then
+   configs.flagship_feedback_code2wav() at full width, eight streams (eight
+   sentences and voices) of 64 frames after one warm run: aggregate RTF,
+   TTFA p50/max, kernel A's launches per step and per frame, the shapes
+   it ran, peak memory, every WAV checked; then a generate_audio call of at
+   least three segments, which goes through the same engine;
+9. every (M, N, K, gs) a kernel ran on the main paths and in serving that
+   phase 2 did not cover is held against its plain version the same way
+   (the wrappers record the shapes of their launches).
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -88,11 +99,12 @@ TOL = 1e-2                    # max|kernel - plain| <= TOL * max|plain| (bf16)
 # plain version's; 1e-5 of the output's range is ~100 f32 ulps of it
 TOL_F32 = 1e-5
 
+SERVING_STREAMS = 8  # the serving phase's streams at full width
 # the feedback code predictor at talker width (hidden_token layout, no
-# in_proj): qkv, o, gate_up, down; it runs one frame at a time, 2 rows in
-# its first pass (hidden, cb0 token) and 1 after
+# in_proj): qkv, o, gate_up, down; it runs one frame at a time, 2 rows a
+# stream in its first pass (hidden, cb0 token) and 1 after
 FEEDBACK_CP_NK = ((3072, 2048), (2048, 1024), (6144, 2048), (2048, 3072))
-FEEDBACK_CP_ROWS = (1, 2)
+FEEDBACK_CP_ROWS = (1, 2, SERVING_STREAMS, 2 * SERVING_STREAMS)
 # (N, K) of every int8 linear on the flagship main paths
 # talker: q, k/v, o, gate/up, down, codec head; code predictor (fused
 # decode layout): in_proj, qkv, o, gate_up, down; then the feedback code
@@ -340,9 +352,13 @@ def main() -> None:
     phase_frame_sum(checked)
     checked_f32: dict = {}
     phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
-    launches, shapes = phase_main_paths(torch)
-    # every shape the main path ran is held against its plain version: a
-    # shape the plan missed is checked now
+    launches, shapes, rtfs = phase_main_paths(torch)
+    counts, ran = phase_serving(torch, rtfs["flagship_feedback_code2wav"])
+    for name, run in ran.items():
+        shapes.setdefault(name, set()).update(run)
+    launches = {name: launches[name] + counts[name] for name in launches}
+    # every shape the main paths and serving ran is held against its plain
+    # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
                       for shape in run} - checked.keys())
     log({"phase": "coverage",
@@ -476,6 +492,7 @@ def widen_to_f32(torch, model) -> None:
     for comp in ("params", "cp_params", "codec_params"):
         setattr(model, comp, widen(getattr(model, comp)))
     model._generator = None
+    model._serving = None
 
 
 def phase_reference_import(torch) -> None:
@@ -545,10 +562,11 @@ def _build(label: str):
 
 
 def phase_main_path(torch, label: str, layout: str, kernel: str,
-                    frames: int, model=None) -> tuple[dict, dict]:
+                    frames: int, model=None) -> tuple[dict, dict, float]:
     """The model ``label`` (or ``model``, already loaded) at full width ->
     generate_audio under one int8 layout; returns every kernel's launches in
-    the measured run and the (M, N, K, gs) shapes each ran there."""
+    the measured run, the (M, N, K, gs) shapes each ran there, and its
+    RTF."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import generate_audio
@@ -607,7 +625,7 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
     del model
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
-    return counts, shapes
+    return counts, shapes, m["rtf"]
 
 
 def phase_profile(torch, label: str) -> None:
@@ -664,7 +682,7 @@ def _same_tree(torch, a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_import(torch) -> tuple[dict, dict]:
+def phase_import(torch) -> tuple[dict, dict, float]:
     """Checkpoint import at full width: fabricate a snapshot in the
     published layout at configs.flagship_feedback_code2wav()'s geometry,
     load_model(dir) it onto the card (first import, then the _tpu_native
@@ -737,24 +755,228 @@ def phase_import(torch) -> tuple[dict, dict]:
                                model=model)
 
 
-def phase_main_paths(torch) -> tuple[dict, dict]:
+def phase_main_paths(torch) -> tuple[dict, dict, dict]:
     """The reference phase, then every main path and the imported
     checkpoint's; returns each kernel's launches on the flagship's main
-    path under its layout (the first path that runs it), and the shapes
-    each kernel ran on any path."""
+    path under its layout (the first path that runs it), the shapes each
+    kernel ran on any path, and each path's RTF."""
     phase_reference(torch)
     launches: dict = {}
     shapes: dict = {}
+    rtfs: dict = {}
     for label, layout, kernel, frames in MAIN_PATHS:
-        counts, ran = phase_main_path(torch, label, layout, kernel, frames)
+        counts, ran, rtfs[label] = phase_main_path(torch, label, layout,
+                                                   kernel, frames)
         launches.setdefault(kernel, counts[kernel])
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
     # the imported checkpoint's path: its shapes join the coverage check
-    _, ran = phase_import(torch)
+    _, ran, _ = phase_import(torch)
     for name, run in ran.items():
         shapes.setdefault(name, set()).update(run)
-    return launches, shapes
+    return launches, shapes, rtfs
+
+
+SERVING_TEXTS = (
+    "The quick brown fox jumps over the lazy dog.",
+    "Please leave the parcel at the side door before noon.",
+    "Rain is expected over the hills by the evening.",
+    "Our next train to the coast departs from platform four.",
+    "She counted the stars until the sky turned grey.",
+    "Turn left at the bakery and walk two more blocks.",
+    "The meeting moved to Thursday at half past nine.",
+    "A warm cup of tea waits for you in the kitchen.",
+)
+SERVING_FRAMES = 64
+
+
+def _serving_codes(engine, prompts, budgets) -> list:
+    """Serve ``prompts`` with one joining mid-flight (after two steps);
+    returns each stream's codes [Q, frames]."""
+    ids = [engine.submit(p, max_frames=b)
+           for p, b in zip(prompts[:-1], budgets[:-1])]
+    engine.step()
+    engine.step()
+    ids.append(engine.submit(prompts[-1], max_frames=budgets[-1]))
+    for _ in range(500):
+        if all(engine.streams[i].done for i in ids):
+            break
+        engine.step()
+    else:
+        fail("serving: the tiny streams did not finish in 500 steps")
+    return [engine.collect(i)[1].codes for i in ids]
+
+
+def phase_serving_reference(torch) -> None:
+    """Tiny models with int8 weights, grouped layout, four streams with
+    different budgets, the fourth joining mid-flight. In float32 (cb0 +
+    rvq, residual_sum + code2wav) each stream's greedy codes on the card
+    must equal the single-stream Generator's on the card and the same
+    engine's on the CPU; in bf16 the agreement is printed only."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+    from qwen3_tts_tpu_torch.runtime.serving import ServingEngine
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    greedy = SamplingConfig(greedy=True)
+    budgets = (6, 16, 11, 12)
+    feedback = configs.with_quant(configs.with_code2wav(
+        configs.tiny_feedback(), configs.tiny_code2wav().code2wav), True)
+    for label, base, dtype in (("cb0_rvq", configs.tiny(quant=True), "float32"),
+                               ("residual_sum_code2wav", feedback, "float32"),
+                               ("cb0_rvq", configs.tiny(quant=True),
+                                "bfloat16")):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+        prompts = [prepare_segments(host, text, voice=voice)[0][0]
+                   for text, voice in zip(SERVING_TEXTS[:4], cfg.speakers)]
+        codes = {}
+        for dev in ("cpu", "cuda"):
+            model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+            model.sampling = greedy
+            before = cuda_kernels.GROUPED_QMV.launches
+            codes[dev] = _serving_codes(
+                ServingEngine(model, max_streams=4, sampling=greedy), prompts,
+                budgets)
+            if dev == "cuda":
+                if cuda_kernels.GROUPED_QMV.launches == before:
+                    fail(f"serving {label} {dtype}: kernel A never launched")
+                single = [model.generator.synthesize(
+                    p, max_frames=b, collect_codes=True).codes
+                    for p, b in zip(prompts, budgets)]
+        lead = []
+        for got, want in zip(codes["cuda"], codes["cpu"]):
+            got, want = np.concatenate(got, 1), np.concatenate(want, 1)
+            n = min(got.shape[1], want.shape[1])
+            diff = (got[:, :n] != want[:, :n]).any(axis=0)
+            lead.append(int(diff.argmax()) if diff.any() else n)
+        same_cpu = all(np.array_equal(np.concatenate(a, 1), np.concatenate(b, 1))
+                       for a, b in zip(codes["cuda"], codes["cpu"]))
+        same_single = all(np.array_equal(np.concatenate(a, 1), b)
+                          for a, b in zip(codes["cuda"], single))
+        log({"phase": "serving", "step": "reference", "model": label,
+             "dtype": dtype, "streams": 4, "budgets": list(budgets),
+             "frames": [int(sum(c.shape[1] for c in cs))
+                        for cs in codes["cpu"]],
+             "card_equals_cpu": same_cpu,
+             "card_equals_single_stream": same_single,
+             "frames_equal_before_first_difference": lead})
+        if dtype == "float32" and not (same_cpu and same_single):
+            fail(f"serving {label} float32: the card's greedy codes differ "
+                 f"from the CPU's ({same_cpu}) or from single-stream "
+                 f"synthesis on the card ({same_single})")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
+    """The serving engine at full width: phase_serving_reference, then
+    configs.flagship_feedback_code2wav() (grouped layout) serving eight
+    streams of SERVING_FRAMES frames after one warm run, every WAV checked;
+    then a generate_audio call of at least three segments. Returns each
+    kernel's launches over both measured runs and the shapes they ran."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+    from qwen3_tts_tpu_torch.engine import generate_audio, prepare_segments
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    phase_serving_reference(torch)
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    label = "flagship_feedback_code2wav"
+    model = _build(label)
+    cfg = model.cfg
+    hop, sr = cfg.codec.hop, cfg.codec.sample_rate
+    skip = cfg.code2wav.startup_samples
+    voices = [cfg.speakers[i % len(cfg.speakers)]
+              for i in range(SERVING_STREAMS)]
+    prompts = [prepare_segments(model, text, voice=voice)[0][0]
+               for text, voice in zip(SERVING_TEXTS, voices)]
+    engine = model.serving_engine(SERVING_STREAMS)
+    engine.run(prompts, max_frames=16)  # warm: allocator, first launches
+    dispatch = engine.dispatch_step
+    steps = []
+
+    def counted():
+        payload = dispatch()
+        steps.append(payload is not None)
+        return payload
+
+    engine.dispatch_step = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = engine.run(prompts, max_frames=SERVING_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    engine.dispatch_step = dispatch
+    frames = [st.frames for _, st in results]
+    with tempfile.TemporaryDirectory() as out:
+        for i, (wav, st) in enumerate(results):
+            path = os.path.join(out, f"stream_{i}.wav")
+            write_wav(path, wav, sr)
+            with wave.open(path, "rb") as w:
+                fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+                n = w.getnframes()
+                pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+            if fmt != (1, 2, 24000) or st.frames < 1 \
+                    or n != st.frames * hop - skip:
+                fail(f"serving stream {i}: wav {fmt}, {n} samples for "
+                     f"{st.frames} frames (hop {hop}, startup {skip})")
+            if not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
+                fail(f"serving stream {i}: the waveform is silent or not "
+                     "finite")
+    if counts["grouped_qmv"] == 0:
+        fail("serving: kernel A never launched")
+    ttfa = sorted(st.ttfa_s for _, st in results)
+    audio_s = sum(len(w) for w, _ in results) / sr
+    n_steps = sum(steps)
+    log({"phase": "serving", "step": "flagship", "model": label,
+         "layout": "grouped", "streams": SERVING_STREAMS,
+         "frames_budget": SERVING_FRAMES, "frames": frames,
+         "audio_s": audio_s, "wall_s": wall, "aggregate_rtf": audio_s / wall,
+         "ttfa_p50_s": statistics.median(ttfa), "ttfa_max_s": ttfa[-1],
+         "single_stream_rtf_main_path": single_rtf,
+         "dispatches": n_steps, "launches": counts,
+         "grouped_qmv_launches_per_dispatch": counts["grouped_qmv"] / n_steps,
+         "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / sum(frames),
+         "peak_mem_gb": peak,
+         "shapes": {name: sorted(run) for name, run in shapes.items()}})
+
+    # long-form generate_audio: three segments or more, through the engine
+    text = " ".join(SERVING_TEXTS * 4)  # ~1,570 characters
+    with tempfile.TemporaryDirectory() as out:
+        cuda_kernels.reset_launch_counts()
+        m = generate_audio(model=model, text=text, voice="ryan",
+                           output_path=out, max_frames=24, seed=0)
+        torch.cuda.synchronize()
+        for k in cuda_kernels.KERNELS:
+            counts[k.name] += k.launches
+            shapes[k.name].update(k.shapes)
+        with wave.open(os.path.join(out, "audio_000.wav"), "rb") as w:
+            n = w.getnframes()
+    gap = int(0.15 * sr)
+    want = m["frames"] * hop - m["segments"] * skip + (m["segments"] - 1) * gap
+    log({"phase": "serving", "step": "longform", "chars": len(text),
+         "segments": m["segments"], "frames": m["frames"], "samples": n,
+         "expected_samples": want, "wall_s": m["wall_s"], "rtf": m["rtf"],
+         "ttfa_s": m["ttfa_s"]})
+    if m["segments"] < 3 or n != want or engine is not model.serving_engine():
+        fail(f"serving longform: {m['segments']} segments, {n} samples "
+             f"(expected {want}), or not through the serving engine")
+    del model, engine
+    torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    return counts, shapes
 
 
 if __name__ == "__main__":

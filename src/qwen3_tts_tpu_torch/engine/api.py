@@ -8,7 +8,10 @@ reference app consumes):
   ``_tpu_native/``, or a native directory) or a ``synthetic:`` name
 - ``generate_audio(model=, text=, voice=, instruct=, speed=, ref_audio=,
   ref_text=, output_path=, ...)`` writing ``audio_000.wav`` into
-  ``output_path`` and returning metrics (rtf, ttfa_s, frames, ...).
+  ``output_path`` and returning metrics (rtf, ttfa_s, frames, ...). Text
+  longer than one segment runs its segments concurrently through the
+  model's serving engine (``Qwen3TTSModel.serving_engine``,
+  ``runtime/serving.py``) unless ``QWEN3_TTS_LONGFORM=serial``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without CUDA, the default raises rather than falling
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import os
 import re
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -82,6 +86,7 @@ def apply_compute_format(model: "Qwen3TTSModel") -> "Qwen3TTSModel":
         model.params = dequantize_tree(model.params, dtype)
         model.cp_params = dequantize_tree(model.cp_params, dtype)
         model._generator = None
+        model._serving = None
     return model
 
 
@@ -109,6 +114,7 @@ class Qwen3TTSModel:
     st_raw: Any = field(default=None, repr=False)
     load_times: dict = field(default_factory=dict)   # seconds of each step
     _generator: Any = field(default=None, repr=False)
+    _serving: Any = field(default=None, repr=False)
 
     def to(self, device) -> "Qwen3TTSModel":
         """Move the parameter trees to ``device`` (in place)."""
@@ -119,6 +125,7 @@ class Qwen3TTSModel:
         self.cp_params = tree_to(self.cp_params, self.device)
         self.codec_params = tree_to(self.codec_params, self.device)
         self._generator = None
+        self._serving = None
         return self
 
     @property
@@ -133,6 +140,17 @@ class Qwen3TTSModel:
                 sampling=self.sampling or SamplingConfig(),
             )
         return self._generator
+
+    def serving_engine(self, max_streams: int = 8):
+        """The model's multi-stream engine (``runtime/serving.py``), built
+        on first use over the generator's decode-layout trees and kept;
+        rebuilt when ``max_streams`` changes."""
+        from ..runtime.serving import ServingEngine
+
+        if self._serving is None or self._serving.B != max_streams:
+            self._serving = ServingEngine(self, max_streams=max_streams,
+                                          sampling=self.sampling)
+        return self._serving
 
     @classmethod
     def synthetic(cls, cfg: ModelConfig, seed: int = 0,
@@ -289,9 +307,10 @@ def generate_audio(
     16-bit PCM, 24 kHz). Returns {frames, audio_s, wall_s, ttfa_s, rtf,
     segments, sample_rate}.
 
-    Multi-segment text runs its segments one after another (the JAX
-    package's QWEN3_TTS_LONGFORM=serial behaviour) until the serving engine
-    is ported."""
+    Text of several segments without an ``on_chunk`` consumer runs them
+    concurrently through the serving engine, its sampling seeded with
+    ``seed`` (QWEN3_TTS_LONGFORM=serving, the default); any other value, or
+    an ``on_chunk`` consumer, runs them one after another."""
     cfg = model.cfg
     sr = cfg.codec.sample_rate
     if abs(speed - 1.0) >= 1e-3 and not cfg.native_speed:
@@ -307,15 +326,28 @@ def generate_audio(
     total_frames = 0
     ttfa = None
     wall = 0.0
-    for seg_idx, (prompt, budget) in enumerate(zip(prompts, budgets)):
-        result = model.generator.synthesize(
-            prompt, max_frames=budget, seed=seed + seg_idx, on_chunk=on_chunk,
-        )
-        pieces.append(result.wav)
-        total_frames += result.frames
-        wall += result.wall_s
-        if ttfa is None:
-            ttfa = result.ttfa_s
+    longform = os.environ.get("QWEN3_TTS_LONGFORM", "serving")
+    if len(prompts) > 1 and on_chunk is None and longform == "serving":
+        engine = model.serving_engine()
+        engine.rng.manual_seed(seed)  # reproducible per call
+        t0 = time.perf_counter()
+        results = engine.run(prompts, max_frames=budgets)
+        wall = time.perf_counter() - t0
+        pieces = [wav for wav, _ in results]
+        total_frames = sum(s.frames for _, s in results)
+        ttfa = min((s.ttfa_s for _, s in results if s.ttfa_s is not None),
+                   default=0.0)
+    else:
+        for seg_idx, (prompt, budget) in enumerate(zip(prompts, budgets)):
+            result = model.generator.synthesize(
+                prompt, max_frames=budget, seed=seed + seg_idx,
+                on_chunk=on_chunk,
+            )
+            pieces.append(result.wav)
+            total_frames += result.frames
+            wall += result.wall_s
+            if ttfa is None:
+                ttfa = result.ttfa_s
 
     gap = np.zeros(int(_SEGMENT_GAP_S * sr), dtype=pieces[0].dtype)
     out = pieces[0] if len(pieces) == 1 else np.concatenate(

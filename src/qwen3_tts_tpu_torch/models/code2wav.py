@@ -34,7 +34,9 @@ import torch.nn.functional as F
 from ..engine.configs import Code2WavConfig
 from ..ops.linear import linear
 from .init import make_init, stack_trees
-from .layers import apply_rope, rmsnorm, rope_tables, swiglu_mlp, unstack_layers
+from .layers import (
+    apply_rope, rmsnorm, rope_slice, rope_tables, swiglu_mlp, unstack_layers,
+)
 
 Params = dict[str, Any]
 
@@ -198,8 +200,8 @@ def convnext_block(x: torch.Tensor, p: Params) -> torch.Tensor:
 def _pre_block(bp: Params, h: torch.Tensor, cfg: Code2WavConfig, cos, sin,
                past_k, past_v, allowed: torch.Tensor):
     """One layer over h [B, C, H]: queries at the C new positions attend
-    over keys [past | new] where ``allowed`` [C, P + C]; returns (h, keys,
-    values)."""
+    over keys [past | new] where ``allowed`` ([C, P + C], or per row
+    [B, 1, 1, C, P + C]); returns (h, keys, values)."""
     B, C, _ = h.shape
     hd = cfg.head_dim
     g = cfg.n_heads // cfg.n_kv_heads
@@ -348,23 +350,32 @@ def _tconv_stream(x: torch.Tensor, p: Params, tail: torch.Tensor, *,
     return emit + b, raw[..., n:]
 
 
-def _pre_transformer_stream(params: Params, x: torch.Tensor, pos: int,
+def _pre_transformer_stream(params: Params, x: torch.Tensor, pos,
                             past_k: torch.Tensor, past_v: torch.Tensor,
                             cfg: Code2WavConfig):
     """The pre-transformer over a chunk x [B, C, H] at absolute frames
-    pos..pos+C: queries attend over [the last W-1 cached | new] with the
+    pos..pos+C (``pos`` an int, or a [B] tensor: each row at its own
+    frame): queries attend over [the last W-1 cached | new] with the
     absolute-position sliding mask. Returns (h, new keys, new values)."""
     C = x.shape[1]
     P = cfg.sliding_window - 1
     cos_t, sin_t = rope_tables(cfg.max_positions, cfg.head_dim,
                                cfg.rope_theta, x.device)
-    cos, sin = cos_t[pos:pos + C], sin_t[pos:pos + C]
+    cos, sin = rope_slice(cos_t, sin_t, pos, C)
     dev = x.device
-    q_pos = (pos + torch.arange(C, device=dev))[:, None]
-    key_pos = torch.cat([pos - P + torch.arange(P, device=dev),
-                         pos + torch.arange(C, device=dev)])[None, :]
+    new_pos = torch.arange(C, device=dev)
+    old_pos = torch.arange(P, device=dev) - P
+    if isinstance(pos, torch.Tensor):
+        q_pos = (pos[:, None] + new_pos[None, :])[:, :, None]      # [B, C, 1]
+        key_pos = (pos[:, None] + torch.cat([old_pos, new_pos])[None, :]
+                   )[:, None, :]                                    # [B, 1, P+C]
+    else:
+        q_pos = (pos + new_pos)[:, None]                           # [C, 1]
+        key_pos = (pos + torch.cat([old_pos, new_pos]))[None, :]   # [1, P+C]
     allowed = ((key_pos <= q_pos) & (key_pos > q_pos - cfg.sliding_window)
                & (key_pos >= 0))
+    if allowed.dim() == 3:  # per row: broadcast over heads and groups
+        allowed = allowed[:, None, None]
     new_k, new_v = [], []
     for bp, pk, pv in zip(unstack_layers(params["blocks"]), past_k, past_v):
         x, keys, vals = _pre_block(bp, x, cfg, cos, sin, pk, pv, allowed)
@@ -375,8 +386,9 @@ def _pre_transformer_stream(params: Params, x: torch.Tensor, pos: int,
 
 
 def code2wav_stream_step(params: Params, cfg: Code2WavConfig, state: Params,
-                         codes: torch.Tensor, pos: int):
-    """Decode one chunk of codes [B, Q, C] at frames pos..pos+C; returns
+                         codes: torch.Tensor, pos):
+    """Decode one chunk of codes [B, Q, C] at frames pos..pos+C (``pos``
+    an int or a [B] tensor); returns
     (wav [B, C * total_upsample], the new state). Concatenated chunks
     equal ``code2wav_decode`` of the whole sequence after the first
     ``startup_samples`` (and beyond the convs' receptive field of the

@@ -280,10 +280,11 @@ def init_codec_stream_state(cfg: ModelConfig, batch: int, *,
 
 
 def decode_codes_streaming(params: Params, cfg: ModelConfig,
-                           codes_new: torch.Tensor, state: dict, pos: int):
+                           codes_new: torch.Tensor, state: dict, pos):
     """Decode ``chunk`` new frames (codes [B, Q, chunk]) with full left
-    context; returns (wav_chunk [B, chunk*hop] f32, new_state). The KV
-    caches in ``state`` are updated in place.
+    context; returns (wav_chunk [B, chunk*hop] f32, new_state). ``pos``:
+    frames decoded before this chunk, an int or a [B] tensor (serving: each
+    row at its own frame). The KV caches in ``state`` are updated in place.
 
     code2wav configs take ``code2wav_stream_step`` (the uniform-shape
     variant): every chunk emits chunk*hop samples, the stream's first

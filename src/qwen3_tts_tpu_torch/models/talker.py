@@ -74,15 +74,17 @@ def talker_forward(
     x_emb: torch.Tensor,           # [B, T, D] input embeddings
     cache_k: torch.Tensor,         # [L, B, S, H_kv, hd], written in place
     cache_v: torch.Tensor,
-    pos: int,                      # write offset into the cache
+    pos,                           # write offset: int, or [B] per row
     cos_table: torch.Tensor,       # [S_rope, hd/2] full-length RoPE tables
     sin_table: torch.Tensor,
-    pad_len: int = 0,
+    pad_len=0,                     # left padding: int, or [B] per row
     head_last_only: bool = False,
+    window_split: tuple | None = None,
 ):
     """Run all layers; returns (hidden [B,T,D], logits f32, cache_k,
     cache_v). Prefill (T > 1) and decode (T == 1). ``head_last_only``
-    scores only the last position (prefill)."""
+    scores only the last position (prefill). ``window_split``: per-group
+    attention windows of the serving engine (``layers.attention``)."""
     T = x_emb.shape[1]
     cos, sin = rope_slice(cos_table, sin_table, pos, T)
     x = x_emb
@@ -91,7 +93,7 @@ def talker_forward(
             bp, x, cos=cos, sin=sin, cache_k=cache_k[i], cache_v=cache_v[i],
             pos=pos, n_heads=t.n_heads, n_kv_heads=t.n_kv_heads,
             head_dim=t.head_dim, rms_eps=t.rms_eps, qk_norm=True,
-            pad_len=pad_len,
+            pad_len=pad_len, window_split=window_split,
         )
     hidden = rmsnorm(x, params["ln_f"], t.rms_eps)
     head_in = hidden[:, -1:, :] if head_last_only else hidden

@@ -38,7 +38,9 @@ from ..models.codec import (
     init_codec_stream_state,
     max_stream_frames,
 )
-from ..models.layers import fuse_block_projections, rope_tables, unstack_layers
+from ..models.layers import (
+    fuse_block_projections, kv_env_format, rope_tables, unstack_layers,
+)
 from ..models.talker import (
     merge_step_embs,
     merge_step_tokens,
@@ -183,12 +185,29 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
     return prefill
 
 
+def _hold_inactive(active, new, old):
+    """``new`` where a serving slot decodes, ``old`` where it holds (an
+    inactive slot keeps its position and counters); ``active`` None: every
+    row decodes."""
+    if active is None:
+        return new
+    mask = active.reshape(active.shape + (1,) * (new.dim() - 1))
+    return torch.where(mask, new, old)
+
+
 def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
                          sampling: SamplingConfig,
-                         attn_len: int | None = None) -> Callable:
+                         attn_len: int | None = None,
+                         window_split: tuple | None = None) -> Callable:
     """One chunk: ``chunk`` talker steps + batched residual prediction +
     incremental codec decode + PCM. Attention reads the first ``attn_len``
-    cache slots (the caller guarantees pos + chunk <= attn_len)."""
+    cache slots (the caller guarantees pos + chunk <= attn_len for every
+    decoding row), split per row group by ``window_split``.
+
+    ONE chunk function serves both engines: ``Generator.stream`` passes int
+    positions and counters and no ``active`` mask (every row decodes); the
+    serving engine passes [B] tensors and its slot mask, and an inactive
+    slot holds its position and frame counter and emits ``codec_pad``."""
     t = cfg.talker
     S = cfg.max_seq_len
     A = attn_len or S
@@ -200,10 +219,11 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
     cp_stoch = cp_samples(cfg, sampling)
 
     def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
-                     cstate, pos: int, pad_len: int, n_frames: int,
-                     last_token, generator):
-        """last_token [B, fps]; returns (cache_k, cache_v, cstate, pos,
-        tok, n_frames, n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
+                     cstate, pos, pad_len, n_frames, last_token, generator,
+                     active=None):
+        """last_token [B, fps]; pos/pad_len/n_frames ints or [B] tensors;
+        returns (cache_k, cache_v, cstate, pos, tok, n_frames, n_valid [B],
+        codes [B, Q, chunk], pcm [B, chunk*hop])."""
         cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta,
                                    last_token.device)
         ck, cv = cache_k[:, :, :A], cache_v[:, :, :A]  # views: writes land
@@ -212,10 +232,12 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
         for s in range(n_steps):
             emb = merge_step_tokens(params, t, tok)[:, None, :]
             hidden, logits, _, _ = talker_forward(
-                params, t, emb, ck, cv, pos + s, cos_t, sin_t,
-                pad_len=pad_len,
+                params, t, emb, ck, cv, pos, cos_t, sin_t,
+                pad_len=pad_len, window_split=window_split,
             )
             tok = sample_token(logits[:, -1, :], generator, sampling)[:, None]
+            tok = _hold_inactive(active, tok, t.codec_pad)
+            pos = _hold_inactive(active, pos + 1, pos)
             toks.append(tok)
             hiddens.append(hidden[:, -1, :])
         tokens_bc = torch.cat(toks, dim=1)                   # [B, chunk]
@@ -237,8 +259,9 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
         is_eos = (tokens_bc == t.codec_eos).int()
         n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
                               torch.full_like(is_eos[:, 0], chunk))
-        return (cache_k, cache_v, cstate, pos + n_steps, tok,
-                n_frames + chunk, n_valid, codes, wav_to_pcm16(wav_chunk))
+        return (cache_k, cache_v, cstate, pos, tok,
+                _hold_inactive(active, n_frames + chunk, n_frames), n_valid,
+                codes, wav_to_pcm16(wav_chunk))
 
     return decode_chunk
 
@@ -263,23 +286,32 @@ def seed_feedback_frames(params, cp_params, cfg: ModelConfig,
     return cb0[:, None], rs.to(hidden.dtype)[:, None], res[:, None]
 
 
-def trailing_lookup(trailing: torch.Tensor, g: int) -> torch.Tensor:
-    """Row ``g`` of the trailing-text buffer [B, Tb, D] -> [B, D]. The
-    buffer's last row is tts_pad (Generator._assemble_published), so
-    clamping the index conditions every frame past the text on tts_pad."""
-    return trailing[:, min(max(g, 0), trailing.shape[1] - 1)]
+def trailing_lookup(trailing: torch.Tensor, g) -> torch.Tensor:
+    """Row ``g`` (an int, or one per row: a [B] tensor) of the
+    trailing-text buffer [B, Tb, D] -> [B, D]. The buffer's last row is
+    tts_pad (Generator._assemble_published), so clamping the index
+    conditions every frame past the text on tts_pad."""
+    last = trailing.shape[1] - 1
+    if isinstance(g, torch.Tensor):
+        rows = torch.arange(trailing.shape[0], device=trailing.device)
+        return trailing[rows, g.clamp(0, last)]
+    return trailing[:, min(max(g, 0), last)]
 
 
 def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
                                   sampling: SamplingConfig,
-                                  attn_len: int | None = None) -> Callable:
+                                  attn_len: int | None = None,
+                                  window_split: tuple | None = None
+                                  ) -> Callable:
     """The published protocol's chunk (transformers
     Qwen3OmniMoeTalkerForConditionalGeneration.prepare_inputs_for_generation)
     at frames_per_step == 1: each talker step consumes the SUM of the
     previous frame's codebook embeddings (cb0 through the talker's
     codec_emb, residual d through the code predictor's depth-d table) and
     one trailing-text row, so the code predictor runs once per frame inside
-    the loop. Then the streaming codec and PCM, as the cb0 chunk."""
+    the loop. Then the streaming codec and PCM, as the cb0 chunk (whose
+    docstring says how both engines drive it: ``active``,
+    ``window_split``)."""
     t = cfg.talker
     if t.frames_per_step != 1:
         raise NotImplementedError(
@@ -291,31 +323,36 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
     cp_stoch = cp_samples(cfg, sampling)
 
     def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
-                     cstate, trailing, pos: int, pad_len: int, n_frames: int,
-                     last_token, res_sum, g: int, generator):
+                     cstate, trailing, pos, pad_len, n_frames, last_token,
+                     res_sum, g, generator, active=None):
         """trailing [B, Tb, D]; last_token [B, 1]; res_sum [B, 1, D] the
         feedback sum of last_token's residual codes; g the trailing rows
-        consumed. Returns (cache_k, cache_v, cstate, pos, tok, n_frames,
-        res_sum, g, n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
+        consumed; pos/pad_len/n_frames/g ints or [B] tensors. Returns
+        (cache_k, cache_v, cstate, pos, tok, n_frames, res_sum, g,
+        n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
         cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta,
                                    last_token.device)
         ck, cv = cache_k[:, :, :A], cache_v[:, :, :A]  # views: writes land
         tok, rs = last_token, res_sum
         toks, residuals = [], []
-        for s in range(chunk):
+        for _ in range(chunk):
             prev = params["codec_emb"][tok].to(rs.dtype) + rs      # [B, 1, D]
-            trail = trailing_lookup(trailing, g + s)[:, None]
+            trail = trailing_lookup(trailing, g)[:, None]
             emb = merge_step_embs(params, t, prev + trail)[:, None, :]
             hidden, logits, _, _ = talker_forward(
-                params, t, emb, ck, cv, pos + s, cos_t, sin_t,
-                pad_len=pad_len,
+                params, t, emb, ck, cv, pos, cos_t, sin_t,
+                pad_len=pad_len, window_split=window_split,
             )
             cb0 = sample_token(logits[:, -1, :], generator, sampling)
             res, rs_new = predict_residuals(
                 cp_params, cfg, hidden[:, -1, :], cb0.clamp(0, cb_size - 1),
                 generator=generator if cp_stoch else None,
                 return_feedback=True)
-            tok, rs = cb0[:, None], rs_new.to(rs.dtype)[:, None]
+            cb0 = _hold_inactive(active, cb0, t.codec_pad)
+            tok = cb0[:, None]
+            rs = _hold_inactive(active, rs_new.to(rs.dtype)[:, None], rs)
+            pos = _hold_inactive(active, pos + 1, pos)
+            g = _hold_inactive(active, g + 1, g)
             toks.append(cb0)
             residuals.append(res)
         tokens_bc = torch.stack(toks, dim=1)                       # [B, chunk]
@@ -328,8 +365,9 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
         is_eos = (tokens_bc == t.codec_eos).int()
         n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
                               torch.full_like(is_eos[:, 0], chunk))
-        return (cache_k, cache_v, cstate, pos + chunk, tok, n_frames + chunk,
-                rs, g + chunk, n_valid, codes, wav_to_pcm16(wav_chunk))
+        return (cache_k, cache_v, cstate, pos, tok,
+                _hold_inactive(active, n_frames + chunk, n_frames), rs, g,
+                n_valid, codes, wav_to_pcm16(wav_chunk))
 
     return decode_chunk
 
@@ -393,6 +431,7 @@ class Generator:
         return make_prefill_fn(self.cfg)
 
     def _alloc_cache(self, batch: int = 1):
+        kv_env_format()  # the int8 KV cache is not ported yet: raises
         t = self.cfg.talker
         shape = (t.n_layers, batch, self.cfg.max_seq_len, t.n_kv_heads,
                  t.head_dim)

@@ -546,3 +546,38 @@ def test_float32_int8_model_greedy_codes_equal_the_cpus_on_cuda(
         assert (kernel.launches > before) == (dev != "cpu")
     assert codes["cuda"].shape[1] > 4
     np.testing.assert_array_equal(codes["cuda"], codes["cpu"])
+
+
+@pytest.mark.cuda
+def test_float32_serving_codes_equal_the_cpus_on_cuda(no_tf32, monkeypatch):
+    """The serving engine over a tiny float32 int8 model (grouped layout):
+    three streams, one joining mid-flight, give on the card (kernel A at
+    M = 4) the CPU's greedy codes."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.runtime.prompts import PromptSpec
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    monkeypatch.setenv("QWEN3_TTS_INT8_LAYOUT", "grouped")
+    cfg = dataclasses.replace(configs.tiny(quant=True), dtype="float32")
+    prompts = [PromptSpec(text_tokens=np.arange(6 + i, dtype=np.int32) * 7 % 200,
+                          speaker_id=i) for i in range(3)]
+    codes = {}
+    for dev in ("cpu", no_tf32):
+        model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+        model.sampling = SamplingConfig(greedy=True)
+        eng = model.serving_engine(4)
+        before = cuda_kernels.GROUPED_QMV.launches
+        ids = [eng.submit(p, max_frames=12) for p in prompts[:2]]
+        eng.step()
+        ids.append(eng.submit(prompts[2], max_frames=8))
+        while not all(eng.streams[i].done for i in ids):
+            eng.step()
+        codes[str(dev)] = [np.concatenate(eng.collect(i)[1].codes, axis=1)
+                           for i in ids]
+        assert (cuda_kernels.GROUPED_QMV.launches > before) == (dev != "cpu")
+    for got, want in zip(codes["cuda"], codes["cpu"]):
+        assert want.shape[1] > 0
+        np.testing.assert_array_equal(got, want)

@@ -11,6 +11,7 @@ import subprocess
 import sys
 import wave
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -97,11 +98,18 @@ def test_generate_audio_writes_the_same_wav_length(temp_dir):
     assert lengths["torch"] == lengths["jax"] > 0
 
 
-def test_generate_audio_serial_segments_and_metrics(temp_dir):
+@pytest.mark.parametrize("longform", ["serving", "serial"])
+def test_generate_audio_serial_segments_and_metrics(longform, temp_dir,
+                                                    monkeypatch):
+    """Two segments, through the serving engine (the default) or one after
+    another (QWEN3_TTS_LONGFORM=serial): each segment's audio, a gap
+    between them, and the metrics."""
+    monkeypatch.setenv("QWEN3_TTS_LONGFORM", longform)
     model = tapi.load_model("synthetic:tiny", device="cpu")
     text = "A long first sentence. " * 30 + "The second segment begins."
     m = tapi.generate_audio(model=model, text=text, voice="ryan",
                             output_path=temp_dir, max_frames=4)
+    assert (model._serving is not None) == (longform == "serving")
     assert m["segments"] == 2 and m["frames"] == 8
     with wave.open(os.path.join(temp_dir, "audio_000.wav"), "rb") as w:
         assert w.getnframes() == 8 * 2000 + int(0.15 * 24000)
@@ -143,6 +151,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tapi.Qwen3TTSModel.synthetic(tcfgs.tiny(quant=True))
 
 
+def _with_env(env: dict, call):
+    with mock.patch.dict(os.environ, env):
+        return call()
+
+
 def _with_fps(cfg, fps: int):
     return dataclasses.replace(
         cfg, talker=dataclasses.replace(cfg.talker, frames_per_step=fps))
@@ -163,8 +176,11 @@ def _with_fps(cfg, fps: int):
                                       output_path=d, speed=1.3), "13"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", output_path=d,
                                       ref_audio="ref.wav"), "12"),
+    # the KVQuant int8 KV cache is the rest of item 11
+    (lambda m, d: _with_env({"QWEN3_TTS_KV": "int8"}, lambda: tapi.generate_audio(
+        model=m, text="x", voice="ryan", output_path=d)), "11"),
 ], ids=["base_mode", "code2wav", "residual_sum_mtp", "checkpoint_dir",
-        "speed", "ref_audio"])
+        "speed", "ref_audio", "kv_int8"])
 def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
     model = tapi.load_model("synthetic:tiny", device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
