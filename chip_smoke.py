@@ -61,9 +61,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    TTFA p50/max, kernel A's launches per step and per frame, the shapes
    it ran, peak memory, every WAV checked; then a generate_audio call of at
    least three segments, which goes through the same engine;
-9. every (M, N, K, gs) a kernel ran on the main paths and in serving that
-   phase 2 did not cover is held against its plain version the same way
-   (the wrappers record the shapes of their launches).
+9. every (M, N, K, gs) a kernel ran on the main paths, in serving and in
+   cloning that phase 2 did not cover is held against its plain version
+   the same way (the wrappers record the shapes of their launches);
+10. the int8 KV cache (QWEN3_TTS_KV=int8): in phase 3, a tiny float32
+   model's greedy codes on the card must equal the CPU's, and the int8
+   serving engine's (four streams, one joining mid-flight) must equal int8
+   single-stream synthesis on the card; in phase 8, step ``kv_int8``
+   serves the same eight full-width streams as step ``flagship`` from
+   KVQuant caches (aggregate RTF, TTFA, peak memory, which must be below
+   the dense step's, and the share of frames whose codes equal the dense
+   run's, information only);
+11. cloning: in phase 3, synthetic:tiny:base (the codec encoder, RVQ and the
+   speaker vector) and a tiny published-layout snapshot with a Mimi speech
+   tokenizer clone a fixed 1 s reference, float32, with reference codes
+   and greedy codes on the card equal to the CPU's; phase ``clone`` loads
+   phase 7's snapshot, which carries a Mimi speech tokenizer at the
+   published widths, with load_model(dir, mode="base"), encodes a 5 s
+   reference (time, frames, bucket) and runs generate_audio(ref_audio=...,
+   ref_text=...) for 64 frames (RTF, TTFA, peak memory, kernel A launches
+   a frame).
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -474,6 +491,182 @@ def phase_reference(torch) -> None:
                      f"from the CPU's (equal for {lead} frames)")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
     phase_reference_import(torch)
+    phase_reference_kv_int8(torch)
+    phase_reference_clone(torch)
+
+
+def _lead(got, want) -> int:
+    """Frames of two codes arrays [Q, T] equal before the first difference."""
+    n = min(got.shape[1], want.shape[1])
+    diff = (got[:, :n] != want[:, :n]).any(axis=0)
+    return int(diff.argmax()) if diff.any() else n
+
+
+def phase_reference_kv_int8(torch) -> None:
+    """QWEN3_TTS_KV=int8 on a tiny float32 model with int8 weights, grouped
+    layout: single-stream greedy codes on the card must equal the CPU's
+    for four prompts, and the int8 serving engine's (budgets as phase 8's
+    reference, the fourth stream joining mid-flight) must equal int8
+    single-stream synthesis on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.models.layers import KVQuant
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+    from qwen3_tts_tpu_torch.runtime.serving import ServingEngine
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    os.environ["QWEN3_TTS_KV"] = "int8"
+    greedy = SamplingConfig(greedy=True)
+    budgets = (6, 16, 11, 12)
+    cfg = dataclasses.replace(configs.tiny(quant=True), dtype="float32")
+    host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+    prompts = [prepare_segments(host, text, voice=voice)[0][0]
+               for text, voice in zip(SERVING_TEXTS[:4], cfg.speakers)]
+    single = {}
+    before = cuda_kernels.GROUPED_QMV.launches
+    for dev in ("cpu", "cuda"):
+        model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+        model.sampling = greedy
+        if not isinstance(model.generator._alloc_cache()[0], KVQuant):
+            fail(f"kv_int8 reference, {dev}: the Generator's cache is dense")
+        single[dev] = [model.generator.synthesize(
+            p, max_frames=b, collect_codes=True).codes
+            for p, b in zip(prompts, budgets)]
+    engine = ServingEngine(model, max_streams=4, sampling=greedy)
+    if not isinstance(engine.cache_k, KVQuant):
+        fail("kv_int8 reference: the serving engine's cache is dense")
+    served = [np.concatenate(c, 1)
+              for c in _serving_codes(engine, prompts, budgets)]
+    if cuda_kernels.GROUPED_QMV.launches == before:
+        fail("kv_int8 reference: kernel A never launched on the card")
+    same_cpu = all(np.array_equal(a, b)
+                   for a, b in zip(single["cuda"], single["cpu"]))
+    same_single = all(np.array_equal(a, b)
+                      for a, b in zip(served, single["cuda"]))
+    log({"phase": "reference_kv_int8", "dtype": "float32", "layout": "grouped",
+         "budgets": list(budgets),
+         "frames": [int(c.shape[1]) for c in single["cpu"]],
+         "card_equals_cpu": same_cpu,
+         "serving_equals_single_stream": same_single,
+         "card_vs_cpu_frames_equal_before_first_difference":
+             [_lead(a, b) for a, b in zip(single["cuda"], single["cpu"])],
+         "serving_vs_single_frames_equal_before_first_difference":
+             [_lead(a, b) for a, b in zip(served, single["cuda"])]})
+    if not (same_cpu and same_single):
+        fail(f"kv_int8 reference, float32: the card's greedy codes differ "
+             f"from the CPU's ({same_cpu}) or the int8 engine's from int8 "
+             f"single-stream synthesis ({same_single})")
+    os.environ.pop("QWEN3_TTS_KV")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def reference_clip(seconds: float, sr: int = 24000, seed: int = 3):
+    """A fixed reference voice: a gliding tone with a little noise. Seed 3
+    leaves the tiny float32 model's RVQ argmins a relative margin of
+    3.5e-3 (the card's and the CPU's summation orders differ by ~1e-6)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f = 110 + 40 * np.sin(2 * np.pi * 0.7 * t)
+    return (0.3 * np.sin(2 * np.pi * np.cumsum(f) / sr)
+            + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def phase_reference_clone(torch) -> None:
+    """Cloning on tiny float32 models, grouped layout, on the card and on
+    the CPU: synthetic:tiny:base (the codec encoder, RVQ and the speaker
+    vector) and a tiny published-layout snapshot whose Mimi speech
+    tokenizer maps, each cloning a fixed 1 s reference through
+    generate_audio(ref_audio=..., ref_text=...). The reference codes and
+    the greedy codes on the card must equal the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+    from qwen3_tts_tpu_torch.engine import (
+        configs, generate_audio, load_model, prepare_segments,
+    )
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.engine.fabricate import write_published_snapshot
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    greedy = SamplingConfig(greedy=True)
+    clip = reference_clip(1.0)
+    base = dataclasses.replace(configs.tiny("base", quant=True),
+                               dtype="float32")
+    feedback = configs.with_quant(configs.with_code2wav(
+        configs.tiny_feedback("base"), configs.tiny_code2wav().code2wav), True)
+    with tempfile.TemporaryDirectory(prefix="q3tts_clone_ref_") as tmp:
+        ref = os.path.join(tmp, "ref.wav")
+        write_wav(ref, clip, 24000)
+        write_published_snapshot(os.path.join(tmp, "snap"), feedback, seed=9,
+                                 fast=False, speech_tokenizer=True)
+
+        def build(label, dev):
+            if label == "synthetic:tiny:base":
+                return Qwen3TTSModel.synthetic(base, seed=0,
+                                               device="cpu").to(dev)
+            model = load_model(os.path.join(tmp, "snap"), device=dev,
+                               mode="base", cache=False)
+            rep = model.import_report.speech_tokenizer
+            if model.st_params is None or rep["preserved"] or not rep["mapped"]:
+                fail(f"clone reference, {label}: the speech tokenizer did "
+                     f"not map ({rep})")
+            widen_to_f32(torch, model)
+            return model
+
+        for label in ("synthetic:tiny:base", "snapshot:mimi"):
+            out = {}
+            before = cuda_kernels.GROUPED_QMV.launches
+            for dev in ("cpu", "cuda"):
+                model = build(label, dev)
+                model.sampling = greedy
+                prompt = prepare_segments(
+                    model, "Hello there.", ref_audio=ref,
+                    ref_text="A reference transcript.")[0][0]
+                codes, spk = prompt.acoustic_codes, prompt.speaker_vector
+                res = model.generator.synthesize(prompt, max_frames=12,
+                                                 collect_codes=True)
+                m = generate_audio(model=model, text="Hello there.",
+                                   ref_audio=ref,
+                                   ref_text="A reference transcript.",
+                                   output_path=os.path.join(tmp, dev),
+                                   max_frames=12)
+                out[dev] = (codes, spk, res.codes, m["frames"])
+            if cuda_kernels.GROUPED_QMV.launches == before:
+                fail(f"clone reference, {label}: kernel A never launched")
+            (c_cpu, s_cpu, g_cpu, f_cpu), (c_gpu, s_gpu, g_gpu, f_gpu) = (
+                out["cpu"], out["cuda"])
+            ref_equal = np.array_equal(c_cpu, c_gpu)
+            gen_equal = g_cpu.shape == g_gpu.shape and np.array_equal(g_cpu,
+                                                                      g_gpu)
+            spk_err = (float(np.abs(s_cpu - s_gpu).max())
+                       if s_cpu is not None else None)
+            log({"phase": "reference_clone", "model": label,
+                 "dtype": "float32", "layout": "grouped",
+                 "reference_s": 1.0, "reference_codes": list(c_cpu.shape),
+                 "reference_codes_equal": ref_equal,
+                 "speaker_vector_max_err": spk_err,
+                 "frames": int(g_cpu.shape[1]),
+                 "frames_card": int(g_gpu.shape[1]),
+                 "greedy_codes_equal": gen_equal,
+                 "generate_audio_frames": [f_cpu, f_gpu]})
+            if not (ref_equal and gen_equal) or (
+                    spk_err is not None and spk_err > 1e-4):
+                fail(f"clone reference, {label}, float32: the card's "
+                     f"reference codes ({ref_equal}), speaker vector "
+                     f"(max err {spk_err}) or greedy codes ({gen_equal}) "
+                     "differ from the CPU's")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
 
 
 def widen_to_f32(torch, model) -> None:
@@ -682,17 +875,23 @@ def _same_tree(torch, a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_import(torch) -> tuple[dict, dict, float]:
+def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
     """Checkpoint import at full width: fabricate a snapshot in the
     published layout at configs.flagship_feedback_code2wav()'s geometry,
+    with a Mimi speech tokenizer at the published widths,
     load_model(dir) it onto the card (first import, then the _tpu_native
     cache, which must give the same leaves bit for bit), and drive it as a
-    main path; returns that run's kernel launches and shapes."""
+    main path; then phase ``clone`` on the same snapshot. Returns the
+    import run's kernel launches, the shapes both runs ran, and the import
+    run's RTF."""
     import dataclasses
     import shutil
 
     from qwen3_tts_tpu_torch.engine import configs, load_model
     from qwen3_tts_tpu_torch.engine.fabricate import write_published_snapshot
+    from qwen3_tts_tpu_torch.models.speech_tokenizer import (
+        SpeechTokenizerConfig,
+    )
 
     ref = configs.flagship_feedback_code2wav()
     tmp = tempfile.gettempdir()
@@ -704,7 +903,9 @@ def phase_import(torch) -> tuple[dict, dict, float]:
              f"{IMPORT_DISK_NEED / GB:.0f} GB")
     with tempfile.TemporaryDirectory(prefix="q3tts_snapshot_") as snap:
         t0 = time.perf_counter()
-        nbytes = write_published_snapshot(snap, ref, seed=0, fast=True)
+        nbytes = write_published_snapshot(
+            snap, ref, seed=0, fast=True,
+            speech_tokenizer=SpeechTokenizerConfig())
         log({"phase": "import", "step": "fabricate", "bytes": nbytes,
              "fabricate_s": time.perf_counter() - t0})
 
@@ -726,12 +927,18 @@ def phase_import(torch) -> tuple[dict, dict, float]:
                  if getattr(getattr(cfg, sec), f) != getattr(getattr(ref, sec), f)]
         if cfg.code2wav != ref.code2wav:
             wrong.append("code2wav")
+        st = rep.speech_tokenizer or {}
+        if model.st_cfg != SpeechTokenizerConfig():
+            wrong.append("speech_tokenizer")
         if rep.unmapped or rep.synthetic or wrong \
                 or cfg.talker.feedback != "residual_sum" \
-                or cfg.codec_arch != "code2wav":
+                or cfg.codec_arch != "code2wav" \
+                or st.get("family") != "mimi" or st.get("preserved") \
+                or not st.get("mapped"):
             fail(f"import: unmapped {rep.unmapped[:5]}, synthetic "
                  f"{rep.synthetic}, protocol {cfg.talker.feedback}, codec "
-                 f"{cfg.codec_arch}, fields unlike the preset {wrong}")
+                 f"{cfg.codec_arch}, fields unlike the preset {wrong}, "
+                 f"speech tokenizer {st}")
         if "cache_write_s" not in model.load_times:
             fail("import: the first load wrote no native cache")
 
@@ -741,18 +948,107 @@ def phase_import(torch) -> tuple[dict, dict, float]:
             fail(f"import: the second load did not come from the cache "
                  f"({again.load_times})")
         same = all(_same_tree(torch, getattr(model, c), getattr(again, c))
-                   for c in ("params", "cp_params", "codec_params"))
+                   for c in ("params", "cp_params", "codec_params",
+                             "st_params"))
         log({"phase": "import", "step": "native_load", **again.load_times,
              "leaves_bit_equal": same,
              "config_equal": dataclasses.asdict(again.cfg)
              == dataclasses.asdict(cfg)})
-        if not same or again.cfg != cfg:
+        if not same or again.cfg != cfg or again.st_cfg != model.st_cfg:
             fail("import: the native cache's model differs from the import's")
         del again
         torch.cuda.empty_cache()
-        return phase_main_path(torch, "import:flagship_feedback_code2wav",
-                               "grouped", "grouped_qmv", MAIN_FRAMES,
-                               model=model)
+        counts, shapes, rtf = phase_main_path(
+            torch, "import:flagship_feedback_code2wav", "grouped",
+            "grouped_qmv", MAIN_FRAMES, model=model)
+        del model
+        for name, run in phase_clone(torch, snap, feedback_rtf).items():
+            shapes.setdefault(name, set()).update(run)
+        return counts, shapes, rtf
+
+
+CLONE_REF_S = 5.0
+CLONE_REF_TEXT = "A warm cup of tea waits for you in the kitchen."
+
+
+def phase_clone(torch, snap: str, feedback_rtf: float) -> dict:
+    """Cloning at full width: the import phase's snapshot (its Mimi speech
+    tokenizer at the published widths) loaded with load_model(dir,
+    mode="base"), a 5 s reference encoded (time, code frames, bucket), then
+    one generate_audio(ref_audio=..., ref_text=...) of MAIN_FRAMES frames
+    after one warm call (RTF, TTFA, peak memory, kernel A launches a
+    frame; the WAV checked). Returns the shapes each kernel ran."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+    from qwen3_tts_tpu_torch.engine.api import _ref_bucket
+    from qwen3_tts_tpu_torch.models.speech_tokenizer import st_frames
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    t0 = time.perf_counter()
+    model = load_model(snap, device="cuda", mode="base", cache=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = model.cfg
+    rep = model.import_report.speech_tokenizer
+    if cfg.mode != "base" or model.st_params is None or rep["preserved"]:
+        fail(f"clone: mode {cfg.mode}, speech tokenizer {rep}")
+    sr, hop = cfg.codec.sample_rate, cfg.codec.hop
+    clip = reference_clip(CLONE_REF_S, sr)
+    encode_s = []
+    for _ in range(2):  # the first call includes the allocator's first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, spk = model.encode_reference(clip)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+    T = st_frames(model.st_cfg, len(clip))
+    if codes.shape != (cfg.codec.num_codebooks, T) or spk is not None \
+            or codes.min() < 0 or codes.max() >= cfg.codec.codebook_size:
+        fail(f"clone: reference codes {codes.shape} in "
+             f"[{codes.min()}, {codes.max()}], speaker vector {spk is not None}")
+    log({"phase": "clone", "step": "encode", "reference_s": CLONE_REF_S,
+         "encode_s": encode_s, "code_frames": T, "bucket": _ref_bucket(T),
+         "st_hop": model.st_cfg.hop, "load_s": load_s})
+    with tempfile.TemporaryDirectory() as out:
+        ref = os.path.join(out, "ref.wav")
+        write_wav(ref, clip, sr)
+        kw = dict(model=model, text=TEXT, ref_audio=ref,
+                  ref_text=CLONE_REF_TEXT, output_path=out)
+        warm = generate_audio(max_frames=16, seed=1, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        m = generate_audio(max_frames=MAIN_FRAMES, seed=0, **kw)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        with wave.open(os.path.join(out, "audio_000.wav"), "rb") as w:
+            fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    skip = cfg.code2wav.startup_samples
+    if fmt != (1, 2, 24000) or m["frames"] < 1 \
+            or n != m["frames"] * hop - skip \
+            or not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
+        fail(f"clone: wav {fmt}, {n} samples for {m['frames']} frames "
+             f"(hop {hop}, startup {skip}), or silent")
+    if counts["grouped_qmv"] == 0:
+        fail("clone: kernel A never launched")
+    log({"phase": "clone", "step": "generate", "frames": m["frames"],
+         "audio_s": m["audio_s"], "wall_s": m["wall_s"], "rtf": m["rtf"],
+         "ttfa_s": m["ttfa_s"], "warmup_wall_s": warm["wall_s"],
+         "rtf_flagship_feedback_code2wav": feedback_rtf,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": counts,
+         "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / m["frames"],
+         "shapes": {name: sorted(run) for name, run in shapes.items()}})
+    del model
+    torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    return shapes
 
 
 def phase_main_paths(torch) -> tuple[dict, dict, dict]:
@@ -771,7 +1067,7 @@ def phase_main_paths(torch) -> tuple[dict, dict, dict]:
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
     # the imported checkpoint's path: its shapes join the coverage check
-    _, ran, _ = phase_import(torch)
+    _, ran, _ = phase_import(torch, rtfs["flagship_feedback_code2wav"])
     for name, run in ran.items():
         shapes.setdefault(name, set()).update(run)
     return launches, shapes, rtfs
@@ -882,8 +1178,8 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
     kernel's launches over both measured runs and the shapes they ran."""
     import numpy as np
 
-    from qwen3_tts_tpu_torch.audio import write_wav
     from qwen3_tts_tpu_torch.engine import generate_audio, prepare_segments
+    from qwen3_tts_tpu_torch.models.layers import KVQuant
     from qwen3_tts_tpu_torch.ops import cuda_kernels
 
     phase_serving_reference(torch)
@@ -897,60 +1193,43 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
               for i in range(SERVING_STREAMS)]
     prompts = [prepare_segments(model, text, voice=voice)[0][0]
                for text, voice in zip(SERVING_TEXTS, voices)]
+    def measured(engine):
+        """One warm run of the eight prompts, then the measured one, its
+        sampling seeded alike in every step; returns the results, the
+        step's numbers (every WAV checked), kernel launches and shapes."""
+        engine.run(prompts, max_frames=16)  # warm: allocator, first launches
+        dispatch = engine.dispatch_step
+        steps = []
+
+        def counted():
+            payload = dispatch()
+            steps.append(payload is not None)
+            return payload
+
+        engine.dispatch_step = counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        engine.rng.manual_seed(0)
+        t0 = time.perf_counter()
+        results = engine.run(prompts, max_frames=SERVING_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del engine.dispatch_step  # the class's method again
+        return (results, _serving_step_row(results, wall, peak, counts,
+                                           sum(steps), cfg), counts, shapes)
+
     engine = model.serving_engine(SERVING_STREAMS)
-    engine.run(prompts, max_frames=16)  # warm: allocator, first launches
-    dispatch = engine.dispatch_step
-    steps = []
-
-    def counted():
-        payload = dispatch()
-        steps.append(payload is not None)
-        return payload
-
-    engine.dispatch_step = counted
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = engine.run(prompts, max_frames=SERVING_FRAMES)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
-    shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    engine.dispatch_step = dispatch
-    frames = [st.frames for _, st in results]
-    with tempfile.TemporaryDirectory() as out:
-        for i, (wav, st) in enumerate(results):
-            path = os.path.join(out, f"stream_{i}.wav")
-            write_wav(path, wav, sr)
-            with wave.open(path, "rb") as w:
-                fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
-                n = w.getnframes()
-                pcm = np.frombuffer(w.readframes(n), dtype="<i2")
-            if fmt != (1, 2, 24000) or st.frames < 1 \
-                    or n != st.frames * hop - skip:
-                fail(f"serving stream {i}: wav {fmt}, {n} samples for "
-                     f"{st.frames} frames (hop {hop}, startup {skip})")
-            if not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
-                fail(f"serving stream {i}: the waveform is silent or not "
-                     "finite")
-    if counts["grouped_qmv"] == 0:
-        fail("serving: kernel A never launched")
-    ttfa = sorted(st.ttfa_s for _, st in results)
-    audio_s = sum(len(w) for w, _ in results) / sr
-    n_steps = sum(steps)
+    results, dense, counts, shapes = measured(engine)
     log({"phase": "serving", "step": "flagship", "model": label,
          "layout": "grouped", "streams": SERVING_STREAMS,
-         "frames_budget": SERVING_FRAMES, "frames": frames,
-         "audio_s": audio_s, "wall_s": wall, "aggregate_rtf": audio_s / wall,
-         "ttfa_p50_s": statistics.median(ttfa), "ttfa_max_s": ttfa[-1],
+         "frames_budget": SERVING_FRAMES, **dense,
          "single_stream_rtf_main_path": single_rtf,
-         "dispatches": n_steps, "launches": counts,
-         "grouped_qmv_launches_per_dispatch": counts["grouped_qmv"] / n_steps,
-         "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / sum(frames),
-         "peak_mem_gb": peak,
          "shapes": {name: sorted(run) for name, run in shapes.items()}})
+    dense_codes = [np.concatenate(st.codes, 1) for _, st in results]
 
     # long-form generate_audio: three segments or more, through the engine
     text = " ".join(SERVING_TEXTS * 4)  # ~1,570 characters
@@ -973,10 +1252,85 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
     if m["segments"] < 3 or n != want or engine is not model.serving_engine():
         fail(f"serving longform: {m['segments']} segments, {n} samples "
              f"(expected {want}), or not through the serving engine")
+
+    # the same eight streams from int8 KV caches (QWEN3_TTS_KV=int8): the
+    # dense engine and its caches are freed first, so the peaks compare
+    del engine
+    model._serving = None
+    torch.cuda.empty_cache()
+    os.environ["QWEN3_TTS_KV"] = "int8"
+    engine = model.serving_engine(SERVING_STREAMS)
+    if not isinstance(engine.cache_k, KVQuant):
+        fail("serving kv_int8: the engine's cache is not a KVQuant")
+    results, row, kv_counts, kv_shapes = measured(engine)
+    for name in counts:
+        counts[name] += kv_counts[name]
+        shapes[name].update(kv_shapes[name])
+    same = total = 0
+    for (_, st), want_codes in zip(results, dense_codes):
+        got = np.concatenate(st.codes, 1)
+        n_common = min(got.shape[1], want_codes.shape[1])
+        same += int((got[:, :n_common] == want_codes[:, :n_common])
+                    .all(axis=0).sum())
+        total += max(got.shape[1], want_codes.shape[1])
+    log({"phase": "serving", "step": "kv_int8", "model": label,
+         "layout": "grouped", "kv_cache": "int8", "streams": SERVING_STREAMS,
+         "frames_budget": SERVING_FRAMES, **row,
+         "dense": {key: dense[key] for key in (
+             "aggregate_rtf", "ttfa_p50_s", "ttfa_max_s", "peak_mem_gb")},
+         "frames_with_codes_equal_to_dense": same / max(total, 1),
+         "cache_gb": 2 * sum(t.numel() * t.element_size()
+                             for t in (engine.cache_k.q, engine.cache_k.s))
+         / 1e9})
+    if row["peak_mem_gb"] >= dense["peak_mem_gb"]:
+        fail(f"serving kv_int8: peak memory {row['peak_mem_gb']} GB is not "
+             f"below the dense step's {dense['peak_mem_gb']} GB")
     del model, engine
     torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_KV")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
     return counts, shapes
+
+
+def _serving_step_row(results, wall: float, peak: float, counts: dict,
+                      n_steps: int, cfg) -> dict:
+    """Check every stream's WAV of one measured ServingEngine.run and
+    return its numbers: frames, aggregate RTF, TTFA p50/max, dispatches,
+    kernel launches (a dispatch, a frame), peak memory."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+
+    hop, sr = cfg.codec.hop, cfg.codec.sample_rate
+    skip = cfg.code2wav.startup_samples
+    frames = [st.frames for _, st in results]
+    with tempfile.TemporaryDirectory() as out:
+        for i, (wav, st) in enumerate(results):
+            path = os.path.join(out, f"stream_{i}.wav")
+            write_wav(path, wav, sr)
+            with wave.open(path, "rb") as w:
+                fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+                n = w.getnframes()
+                pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+            if fmt != (1, 2, 24000) or st.frames < 1 \
+                    or n != st.frames * hop - skip:
+                fail(f"serving stream {i}: wav {fmt}, {n} samples for "
+                     f"{st.frames} frames (hop {hop}, startup {skip})")
+            if not np.isfinite(pcm.astype(np.float64)).all() or not pcm.any():
+                fail(f"serving stream {i}: the waveform is silent or not "
+                     "finite")
+    if counts["grouped_qmv"] == 0:
+        fail("serving: kernel A never launched")
+    ttfa = sorted(st.ttfa_s for _, st in results)
+    audio_s = sum(len(w) for w, _ in results) / sr
+    return {"frames": frames, "audio_s": audio_s, "wall_s": wall,
+            "aggregate_rtf": audio_s / wall,
+            "ttfa_p50_s": statistics.median(ttfa), "ttfa_max_s": ttfa[-1],
+            "dispatches": n_steps, "launches": counts,
+            "grouped_qmv_launches_per_dispatch": counts["grouped_qmv"] / n_steps,
+            "grouped_qmv_launches_per_frame":
+                counts["grouped_qmv"] / sum(frames),
+            "peak_mem_gb": peak}
 
 
 if __name__ == "__main__":

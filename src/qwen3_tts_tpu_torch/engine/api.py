@@ -18,9 +18,10 @@ Entry points run on the CUDA device unless the caller passes
 back. The port covers checkpoints (``engine/weights.py``) and synthetic
 models (``synthetic:tiny|flagship`` with the rvq codec and
 ``synthetic:tiny-code2wav|flagship-code2wav`` with the code2wav decoder)
-in the custom and design modes, and, through ``Qwen3TTSModel.synthetic``,
-any config of ``engine/configs.py`` at one frame per step, the published
-residual_sum protocol included; what waits for later slices raises
+in all three modes (custom, design and base, i.e. cloning from
+``ref_audio``), and, through ``Qwen3TTSModel.synthetic``, any config of
+``engine/configs.py`` at one frame per step, the published residual_sum
+protocol included; what waits for later slices raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -43,7 +44,16 @@ _SYNTH_RE = re.compile(
     r"^synthetic:(tiny|flagship|tiny-code2wav|flagship-code2wav)"
     r"(?::(custom|design|base))?$"
 )
-_CLONING = "cloning waits for ROADMAP queue A, item 12"
+# cloning references are padded to a frame bucket: a few shapes for the
+# allocator to keep, and trailing zeros cannot change a whole frame's codes
+# (every conv and the attention are causal); the padding is trimmed after
+REF_FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+MAX_REF_SECONDS = 30.0  # the acoustic prompt's bound
+
+
+def _ref_bucket(frames: int) -> int:
+    return next((b for b in REF_FRAME_BUCKETS if frames <= b),
+                -(-frames // 2048) * 2048)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -106,11 +116,13 @@ class Qwen3TTSModel:
     sampling: Any = None              # None = SamplingConfig() defaults
     import_report: Any = None         # weights.ImportReport of an HF import
     template: Any = None              # runtime.prompts.PromptTemplate
-    # the speech tokenizer (cloning, ROADMAP item 12): a native directory's
-    # mapped tree and config, carried verbatim and unused
+    # a checkpoint's speech tokenizer (models/speech_tokenizer.py): the
+    # mapped float32 tree and its SpeechTokenizerConfig; None = cloning
+    # through the synthetic codec encoder
     st_params: Any = None
     st_cfg: Any = None
-    # speech_tokenizer.* tensors of an HF import, preserved for the cache
+    # speech_tokenizer.* tensors in an unknown layout, preserved for the
+    # native cache
     st_raw: Any = field(default=None, repr=False)
     load_times: dict = field(default_factory=dict)   # seconds of each step
     _generator: Any = field(default=None, repr=False)
@@ -124,6 +136,8 @@ class Qwen3TTSModel:
         self.params = tree_to(self.params, self.device)
         self.cp_params = tree_to(self.cp_params, self.device)
         self.codec_params = tree_to(self.codec_params, self.device)
+        if self.st_params is not None:
+            self.st_params = tree_to(self.st_params, self.device)
         self._generator = None
         self._serving = None
         return self
@@ -168,11 +182,51 @@ class Qwen3TTSModel:
             cfg=cfg,
             params=init_talker(cfg, seed, device=on_card),
             cp_params=init_code_predictor(cfg, seed + 1, device=on_card),
-            codec_params=init_codec(cfg, seed + 2, device=on_card),
+            codec_params=init_codec(cfg, seed + 2, device=on_card,
+                                    encoder=True),
             tokenizer=load_tokenizer(None, cfg.talker.vocab_size),
             device=dev,
             name=f"synthetic-{cfg.mode}",
         ))
+
+    # -- cloning -------------------------------------------------------------
+
+    def encode_reference(self, wav: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray | None]:
+        """Reference waveform (mono float32 at the codec's rate) ->
+        (codes int32 [Q, T_ref], speaker vector float32 [D_talker] or None),
+        on the model's device. A checkpoint's speech tokenizer returns codes
+        only: the published protocol conditions cloning on the reference
+        codes (and its transcript). Otherwise the synthetic codec encoder
+        returns codes and the mean-pooled speaker vector, the padding
+        frames masked out of the mean."""
+        wav = np.asarray(wav, dtype=np.float32)
+        n = len(wav)
+        if self.st_params is not None:
+            from ..models.speech_tokenizer import st_encode, st_frames
+
+            st_cfg = self.st_cfg
+            T = st_frames(st_cfg, n)
+            padded = np.zeros(_ref_bucket(T) * st_cfg.hop, np.float32)
+            padded[:n] = wav
+            codes = st_encode(self.st_params, st_cfg,
+                              torch.from_numpy(padded).to(self.device)[None])
+            return codes[0, :, :T].cpu().numpy().astype(np.int32), None
+
+        from ..models.codec import encode_waveform, rvq_quantize, speaker_embedding
+
+        T = max(1, -(-n // self.cfg.codec.hop))
+        padded = np.zeros(_ref_bucket(T) * self.cfg.codec.hop, np.float32)
+        padded[:n] = wav
+        w = torch.from_numpy(padded).to(self.device)[None]
+        latent = encode_waveform(self.codec_params, self.cfg, w)
+        codes = rvq_quantize(self.codec_params, self.cfg, latent)
+        mask = (torch.arange(latent.shape[1], device=latent.device) < T)
+        spk = speaker_embedding(self.codec_params, self.cfg,
+                                latent * mask[None, :, None].to(latent.dtype),
+                                n_frames=T)
+        return (codes[0, :, :T].cpu().numpy().astype(np.int32),
+                spk[0].float().cpu().numpy())
 
 
 def load_model(model_path: str, device=None, *, seed: int = 0,
@@ -180,25 +234,19 @@ def load_model(model_path: str, device=None, *, seed: int = 0,
     """Load a checkpoint directory (HF/MLX snapshot or native format;
     ``kwargs`` go to ``weights.load_checkpoint``: ``mode``, ``cache``,
     ``allow_partial``) or build a synthetic model from
-    ``synthetic:<size>[:custom|design]``, size one of tiny, flagship,
+    ``synthetic:<size>[:custom|design|base]``, size one of tiny, flagship,
     tiny-code2wav, flagship-code2wav, on ``device`` (default: the CUDA
     device)."""
     dev = resolve_device(device)
     m = _SYNTH_RE.match(model_path or "")
     if not m:
-        if kwargs.get("mode") == "base":
-            raise NotImplementedError(f"the base mode: {_CLONING}")
         if not os.path.isdir(model_path or ""):
             raise FileNotFoundError(f"model path does not exist: {model_path}")
         from .weights import load_checkpoint
 
-        model = load_checkpoint(model_path, device=dev, seed=seed, **kwargs)
-        if model.cfg.mode == "base":  # a native directory of a base model
-            raise NotImplementedError(f"the base mode: {_CLONING}")
-        return apply_compute_format(model)
+        return apply_compute_format(
+            load_checkpoint(model_path, device=dev, seed=seed, **kwargs))
     size, mode = m.group(1), m.group(2) or "custom"
-    if mode == "base":
-        raise NotImplementedError(f"the base mode: {_CLONING}")
     cfg = {
         "tiny": lambda: configs.tiny(mode, quant=True),
         "flagship": lambda: configs.flagship(mode),
@@ -261,13 +309,21 @@ def prepare_segments(
     ref_text: str | None = None,
     max_frames: int | None = None,
 ) -> tuple[list, list[int]]:
-    """Split ``text`` into segments and build one (prompt, frame budget)
-    pair per segment."""
+    """Split ``text`` into segments, encode the cloning reference
+    ``ref_audio`` (a WAV path; mono-mixed, resampled to the codec's rate,
+    cut to 30 s) once, and build one (prompt, frame budget) pair per
+    segment."""
     from ..runtime.prompts import build_prompt
 
-    if ref_audio is not None:
-        raise NotImplementedError(f"ref_audio: {_CLONING}")
     cfg = model.cfg
+    acoustic_codes = speaker_vector = None
+    if ref_audio is not None:
+        from ..audio import read_wav, resample, to_mono
+
+        sr = cfg.codec.sample_rate
+        data, rate = read_wav(ref_audio)
+        wav_ref = resample(to_mono(data), rate, sr)[:int(MAX_REF_SECONDS * sr)]
+        acoustic_codes, speaker_vector = model.encode_reference(wav_ref)
     segments = _split_segments(text)
     prompts = [
         build_prompt(
@@ -276,6 +332,7 @@ def prepare_segments(
             speaker_tokens=(dict(cfg.talker.speaker_tokens)
                             if cfg.talker.speaker_tokens else None),
             instruct=instruct, speed=speed, ref_text=ref_text,
+            acoustic_codes=acoustic_codes, speaker_vector=speaker_vector,
             template=model.template,
         )
         for segment in segments

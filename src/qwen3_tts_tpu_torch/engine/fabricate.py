@@ -6,18 +6,21 @@ and embeddings, per-component ``config.json`` sections, written with
 numpy and ``engine/safetensors_io.py`` alone.
 
 - ``write_mlx_style_checkpoint`` / ``fabricate_full_checkpoint``: the JAX
-  package's fixtures (the synthetic cb0 layout with the rvq codec);
+  package's fixtures (the synthetic cb0 layout with the rvq codec and a
+  scaled-down Mimi speech tokenizer);
 - ``write_published_snapshot``: the published layout that switches the
   importer to the residual_sum protocol and the code2wav decoder: the
   two-position code predictor (no input projection, no qk-norm) under its
   published names, the talker's text_projection MLP, the think and tts
   ids, a speaker-name map, ``code2wav.*`` under transformers'
   Qwen3OmniMoeCode2Wav module paths with its ``code2wav_config``, and
-  ``tts_prompts.json``.
+  ``tts_prompts.json``; optionally a Mimi speech tokenizer
+  (``speech_tokenizer_tensors``) for cloning.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -119,6 +122,79 @@ def add_codec_tensors(tensors: dict, cfg, seed: int) -> None:
         tensors["codec." + path.replace("/", ".")] = arr.float().numpy()
 
 
+def speech_tokenizer_tensors(cfg, seed: int = 13, st=None) -> tuple[dict, dict]:
+    """Mimi-layout ``speech_tokenizer.*`` tensors (the names of the torch
+    ``MimiModel`` state dict) whose code space is ``cfg.codec``'s, and the
+    ``speech_tokenizer_config`` section of config.json. ``st`` (a
+    ``SpeechTokenizerConfig``) sets the geometry; the default is the JAX
+    package's fixture, a scaled-down Mimi (4-stage SEANet at ~12.5 Hz)."""
+    from ..models.speech_tokenizer import (
+        SpeechTokenizerConfig, init_speech_tokenizer,
+    )
+
+    cc = cfg.codec
+    if st is None:
+        st = SpeechTokenizerConfig(
+            num_filters=4, upsampling_ratios=(8, 6, 5, 4), hidden=32,
+            n_layers=2, n_heads=2, n_kv_heads=2, head_dim=16, ffn=64,
+            codebook_size=cc.codebook_size, codebook_dim=16,
+            num_quantizers=cc.num_codebooks, num_semantic_quantizers=1,
+            frame_div=2, sampling_rate=cc.sample_rate)
+    p = init_speech_tokenizer(st, seed=seed)
+    out: dict = {}
+    pre = "speech_tokenizer."
+
+    def conv(idx: int, sub: dict) -> None:
+        out[f"{pre}encoder.layers.{idx}.conv.weight"] = sub["w"]
+        if "b" in sub:
+            out[f"{pre}encoder.layers.{idx}.conv.bias"] = sub["b"]
+
+    conv(0, p["enc"]["conv_in"])
+    per_stage = st.num_residual_layers + 2  # res..., ELU, down
+    for s, stage in enumerate(p["enc"]["stages"]):
+        base = 1 + s * per_stage
+        for j, blk in enumerate(stage["res"]):
+            for tag, c in (("1", blk["c1"]), ("3", blk["c2"])):
+                nm = f"{pre}encoder.layers.{base + j}.block.{tag}.conv"
+                out[nm + ".weight"] = c["w"]
+                out[nm + ".bias"] = c["b"]
+        conv(base + st.num_residual_layers + 1, stage["down"])
+    conv(1 + len(p["enc"]["stages"]) * per_stage + 1, p["enc"]["conv_out"])
+
+    lin = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+           "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+           "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    vec = {"ln1_w": "input_layernorm.weight",
+           "ln1_b": "input_layernorm.bias",
+           "ln2_w": "post_attention_layernorm.weight",
+           "ln2_b": "post_attention_layernorm.bias",
+           "scale_attn": "self_attn_layer_scale.scale",
+           "scale_mlp": "mlp_layer_scale.scale"}
+    for li, blk in enumerate(p["tf"]):
+        tb = f"{pre}encoder_transformer.layers.{li}."
+        for k, name in lin.items():
+            # the tree holds x @ w [in, out]; files carry torch's [out, in]
+            out[tb + name + ".weight"] = np.ascontiguousarray(blk[k]["w"].T)
+        for k, name in vec.items():
+            out[tb + name] = blk[k]
+    if "down" in p:
+        out[f"{pre}downsample.conv.weight"] = p["down"]["w"]
+    for fam, q in (("semantic", p["quant"]["sem"]),
+                   ("acoustic", p["quant"]["ac"])):
+        qb = f"{pre}quantizer.{fam}_residual_vector_quantizer."
+        out[qb + "input_proj.weight"] = np.ascontiguousarray(
+            q["in_proj"]["w"].T)[:, :, None]                # conv1x1 [D, H, 1]
+        for i, cb in enumerate(q["codebooks"]):
+            # cluster_usage of ones: embed_sum is the codebook
+            out[f"{qb}layers.{i}.codebook.embed_sum"] = cb
+            out[f"{qb}layers.{i}.codebook.cluster_usage"] = np.ones(
+                st.codebook_size, np.float32)
+    section = {"head_dim": st.head_dim, "num_attention_heads": st.n_heads,
+               "num_key_value_heads": st.n_kv_heads,
+               "sampling_rate": st.sampling_rate}
+    return out, section
+
+
 def _pack_u8(codes: np.ndarray) -> np.ndarray:
     """uint8 codes [out, in] -> MLX uint32 words [out, in/4]."""
     return np.ascontiguousarray(codes).view("<u4")
@@ -198,20 +274,15 @@ def _write_prompts(path: str) -> None:
 def fabricate_full_checkpoint(path: str, *, seed: int = 11,
                               template: bool = True) -> str:
     """A complete tiny quantized three-component snapshot (talker, code
-    predictor, rvq codec) plus prompt templates. Its two
-    ``speech_tokenizer.*`` tensors are in no layout the importer maps (the
-    JAX package's fixture writes a Mimi encoder there): they are kept
-    verbatim."""
+    predictor, rvq codec) with a scaled-down Mimi speech tokenizer, plus
+    prompt templates: the JAX package's fixture."""
     from .configs import tiny
 
     cfg = tiny("custom", quant=True)
-    rng = np.random.default_rng(seed + 9)
-    st = {"speech_tokenizer.encoder.layers.0.weight":
-          rng.normal(0, 0.05, (8, 8)).astype(np.float32),
-          "speech_tokenizer.quantizer.codebook":
-          rng.normal(0, 0.05, (16, 8)).astype(np.float32)}
-    write_mlx_style_checkpoint(path, cfg, seed=seed, full=True,
-                               extra_tensors=st)
+    st_tensors, st_section = speech_tokenizer_tensors(cfg, seed=seed + 9)
+    write_mlx_style_checkpoint(
+        path, cfg, seed=seed, full=True, extra_tensors=st_tensors,
+        config_extra={"speech_tokenizer_config": st_section})
     if template:
         _write_prompts(path)
     return path
@@ -328,7 +399,7 @@ def published_config_dict(cfg) -> dict:
 
 
 def write_published_snapshot(path: str, cfg, seed: int = 0,
-                             fast: bool = True) -> int:
+                             fast: bool = True, speech_tokenizer=None) -> int:
     """Write a snapshot of ``cfg`` (a residual_sum + code2wav config, e.g.
     ``configs.flagship_feedback_code2wav()``) in the published layout into
     ``path``; returns the bytes written.
@@ -338,7 +409,13 @@ def write_published_snapshot(path: str, cfg, seed: int = 0,
     bf16 tables, scales and biases, so that a full-width snapshot is
     written in seconds; otherwise the talker's linears are quantized from
     normal draws and the code predictor's are dense f32, as the JAX
-    package's published-layout test fixtures write them."""
+    package's published-layout test fixtures write them.
+
+    ``speech_tokenizer`` adds a Mimi speech tokenizer for cloning: a
+    ``SpeechTokenizerConfig`` (``SpeechTokenizerConfig()``, the published
+    widths, whose 16 books of 2048 match the published code space), or
+    ``True`` for the JAX package's scaled-down fixture; its code space is
+    the config's."""
     from ..models.code2wav import init_code2wav
     from ..models.init import InitPlan
     from .weights import _C2W_BLOCK_NORMS, _leaves
@@ -423,9 +500,18 @@ def write_published_snapshot(path: str, cfg, seed: int = 0,
         key = tuple(int(p) if p.isdigit() else p for p in native.split("."))
         tensors[f"code2wav.{hf}"] = values[key]
 
+    hf = published_config_dict(cfg)
+    if speech_tokenizer is not None:
+        st = None if speech_tokenizer is True else dataclasses.replace(
+            speech_tokenizer, codebook_size=cfg.codec.codebook_size,
+            num_quantizers=cfg.codec.num_codebooks,
+            sampling_rate=cfg.codec.sample_rate)
+        st_tensors, hf["speech_tokenizer_config"] = speech_tokenizer_tensors(
+            cfg, seed=seed + 13, st=st)
+        tensors.update(st_tensors)
     os.makedirs(path, exist_ok=True)
     save_file(tensors, os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(published_config_dict(cfg), f)
+        json.dump(hf, f)
     _write_prompts(path)
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))

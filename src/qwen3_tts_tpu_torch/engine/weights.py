@@ -28,9 +28,11 @@ the mapping fills them. A drawn leaf the checkpoint leaves unfilled gets
 what the JAX importer leaves there, its random init of the JAX seed,
 drawn only as far as that leaf (``_fill_unassigned``).
 
-``speech_tokenizer.*`` tensors are kept verbatim in ``st_raw`` (and the
-native cache) and never mapped: the JAX package maps a Mimi layout there,
-which waits for the cloning slice (ROADMAP queue A, item 12).
+``speech_tokenizer.*`` tensors in the Mimi layout map onto the cloning
+encoder (``models/speech_tokenizer.py``: ``model.st_params``/``st_cfg``,
+written to the native cache as ``speech_tokenizer.safetensors``); an
+unknown layout, or a code space unlike the codec's, is kept verbatim in
+``st_raw`` (``speech_tokenizer_raw.safetensors``) and reported.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ class ImportReport:
     synthetic: tuple[str, ...]         # components that kept their init
     unmapped: list[str]                # checkpoint tensor names not consumed
     # speech_tokenizer.*: {"tensors", "mapped", "family", "preserved",
-    # "names"}; preserved verbatim, never mapped (ROADMAP item 12)
+    # "names"}
     speech_tokenizer: dict | None = None
     # {"source": "file"|"chat_template"|"synthetic", "samples": {mode: str}}
     prompt_template: dict | None = None
@@ -228,9 +230,7 @@ def save_model(model, path: str) -> None:
         # native dir outside the snapshot has no other record of it
         cfg_d["sampling"] = dataclasses.asdict(model.sampling)
     if getattr(model, "st_cfg", None) is not None:
-        cfg_d["speech_tokenizer"] = (
-            model.st_cfg if isinstance(model.st_cfg, dict)
-            else dataclasses.asdict(model.st_cfg))
+        cfg_d["speech_tokenizer"] = dataclasses.asdict(model.st_cfg)
     with open(os.path.join(path, NATIVE_CONFIG), "w") as f:
         json.dump(cfg_d, f, indent=2)
     trees = {"talker": model.params, "code_predictor": model.cp_params,
@@ -260,9 +260,8 @@ def is_native_dir(path: str) -> bool:
 
 
 def load_native(path: str):
-    """A native-format directory -> Qwen3TTSModel with host trees. A
-    mapped speech tokenizer (written by the JAX package) is carried
-    verbatim, unused until the cloning slice."""
+    """A native-format directory (either package's) -> Qwen3TTSModel with
+    host trees, its mapped speech tokenizer included."""
     from ..runtime.prompts import load_prompt_template
     from ..runtime.sampling import SamplingConfig
     from .api import Qwen3TTSModel
@@ -275,7 +274,12 @@ def load_native(path: str):
     st_params = st_cfg = st_raw = None
     if isinstance(cfg_d.get("speech_tokenizer"), dict) and os.path.exists(
             os.path.join(path, "speech_tokenizer.safetensors")):
-        st_cfg = cfg_d["speech_tokenizer"]
+        from ..models.speech_tokenizer import SpeechTokenizerConfig
+
+        fields = {f.name for f in dataclasses.fields(SpeechTokenizerConfig)}
+        st_cfg = SpeechTokenizerConfig(**{
+            k: (tuple(v) if isinstance(v, list) else v)
+            for k, v in cfg_d["speech_tokenizer"].items() if k in fields})
         st_params = _load_component(path, "speech_tokenizer")
     raw_p = os.path.join(path, "speech_tokenizer_raw.safetensors")
     if os.path.exists(raw_p):
@@ -566,7 +570,7 @@ def _strip_prefix(name: str) -> tuple[str, str]:
     for pref, comp in (
         ("code_predictor.", "cp"),
         ("code2wav.", "codec"),
-        # the base checkpoint's reference-audio speech tokenizer: preserved
+        # the base checkpoint's reference-audio speech tokenizer
         ("speech_tokenizer.", "spk_enc"),
         ("codec.", "codec"),
         ("token2wav.", "codec"),
@@ -1024,6 +1028,56 @@ def _fill_unassigned(tree: Any, filled: set, build) -> int:
     return len(todo)
 
 
+def _import_speech_tokenizer(st_tensors: dict, hf_cfg: dict, cfg,
+                             unmapped: list[str], assigned: dict):
+    """``speech_tokenizer.*`` (the reference-audio encoder of cloning):
+    the Mimi layout maps (``models/speech_tokenizer.py``) when its code
+    space is the codec's; anything else is preserved verbatim and
+    reported, never dropped. Returns (st_params, st_cfg, st_raw, report)."""
+    if not st_tensors:
+        return None, None, None, None
+    from ..models.speech_tokenizer import (
+        import_speech_tokenizer, st_config_from_tensors,
+    )
+
+    report = {"tensors": len(st_tensors), "mapped": 0, "family": "unknown",
+              "preserved": False, "names": sorted(st_tensors)[:12]}
+    try:
+        st_cfg = st_config_from_tensors(
+            st_tensors, hf_cfg.get("speech_tokenizer_config") or {})
+    except ValueError as e:
+        report["preserved"] = True
+        warnings.warn(
+            f"checkpoint ships {len(st_tensors)} speech_tokenizer tensors "
+            f"in an unrecognised layout ({e}); cloning uses the synthetic "
+            "codec encoder and the raw tensors are preserved in the native "
+            "conversion. The rest of the checkpoint imports normally.")
+        return None, None, dict(st_tensors), report
+    report["family"] = "mimi"
+    if (st_cfg.num_quantizers != cfg.codec.num_codebooks
+            or st_cfg.codebook_size != cfg.codec.codebook_size):
+        report["preserved"] = True
+        warnings.warn(
+            "speech_tokenizer maps as a Mimi-family encoder but its code "
+            f"space (Q={st_cfg.num_quantizers}, size={st_cfg.codebook_size}) "
+            f"does not match the codec's (Q={cfg.codec.num_codebooks}, "
+            f"size={cfg.codec.codebook_size}); the raw tensors are "
+            "preserved and cloning uses the synthetic codec encoder")
+        return None, None, dict(st_tensors), report
+    st_unmapped: list[str] = []
+    st_params, n = import_speech_tokenizer(st_tensors, st_cfg, st_unmapped)
+    unmapped.extend(st_unmapped)
+    report["mapped"] = assigned["speech_tokenizer"] = n
+    if n == 0:
+        report["preserved"] = True
+        warnings.warn(
+            "speech_tokenizer tensors matched the Mimi layout by name but "
+            "none fit the derived geometry; the raw tensors are preserved "
+            "and cloning uses the synthetic codec encoder")
+        return None, None, dict(st_tensors), report
+    return st_params, st_cfg, None, report
+
+
 def import_hf_checkpoint(path: str, mode: str = "custom", *,
                          allow_partial: bool = False, seed: int = 0,
                          **kwargs):
@@ -1059,16 +1113,8 @@ def import_hf_checkpoint(path: str, mode: str = "custom", *,
     unmapped: list[str] = []
     assigned: dict[str, int] = {}
 
-    st_raw = st_report = None
-    if by_comp["spk_enc"]:
-        st_raw = dict(by_comp["spk_enc"])
-        st_report = {"tensors": len(st_raw), "mapped": 0, "family": "unknown",
-                     "preserved": True, "names": sorted(st_raw)[:12]}
-        warnings.warn(
-            f"checkpoint ships {len(st_raw)} speech_tokenizer tensors; "
-            "they are preserved verbatim in the native conversion and not "
-            "mapped (the speech tokenizer waits for ROADMAP queue A, item "
-            "12). The rest of the checkpoint imports normally.")
+    st_params, st_cfg, st_raw, st_report = _import_speech_tokenizer(
+        by_comp["spk_enc"], hf_cfg, cfg, unmapped, assigned)
 
     template = InitPlan("template")
     talker = init_talker(cfg, seed, device=template)
@@ -1200,6 +1246,8 @@ def import_hf_checkpoint(path: str, mode: str = "custom", *,
         template=prompt_template,
         name=os.path.basename(os.path.normpath(path)),
         sampling=sampling_from_generation_config(path),
+        st_params=st_params,
+        st_cfg=st_cfg,
         st_raw=st_raw,
     )
     model.import_report = ImportReport(

@@ -6,11 +6,13 @@ code2wav config to ``models/code2wav.py``.
 
 Causal 1-D convolutions over ``[B, T, C]`` (the JAX package's layout at the
 public functions; weights ``[k, C_in, C_out]``), nearest-repeat upsampling,
-and a causal latent transformer so the decoder streams chunk by chunk. The
-cloning-side encoder (``enc``) waits for the cloning slice (ROADMAP queue A,
-item 12); ``init_codec`` on the host still draws the encoder, so
-``spk_proj`` gets the JAX package's values, and keeps its tree when a
-checkpoint import asks for it.
+and a causal latent transformer so the decoder streams chunk by chunk.
+
+The cloning side, shared by both decoder architectures: the synthetic
+waveform encoder (``enc``, ``encode_waveform``), nearest-neighbour residual
+VQ onto the decoder's code space (``rvq_quantize``) and the mean-pooled
+speaker vector (``speaker_embedding``). A checkpoint's real speech
+tokenizer is ``models/speech_tokenizer.py``.
 """
 
 from __future__ import annotations
@@ -119,8 +121,7 @@ def init_codec(cfg: ModelConfig, seed: int = 2, device=None,
                encoder: bool = False) -> Params:
     """Random-init codec decoder (``dec`` for the rvq codec, ``c2w`` for
     code2wav) and ``spk_proj`` parameters (see talker.init_talker for
-    ``device``). ``encoder`` keeps the cloning encoder's tree (``enc``,
-    which the runtime does not read yet) for a checkpoint import to fill;
+    ``device``). ``encoder`` keeps the cloning encoder's tree (``enc``);
     its values are drawn on the host either way, so ``spk_proj`` gets the
     JAX package's values."""
     cc = cfg.codec
@@ -311,3 +312,82 @@ def decode_codes_streaming(params: Params, cfg: ModelConfig,
     new_lat = rmsnorm(x, dec["ln"], 1e-6)
     wav, conv_state = _conv_stack(dec, cc, new_lat, state["conv"])
     return wav, {"tf_k": state["tf_k"], "tf_v": state["tf_v"], "conv": conv_state}
+
+
+# --------------------------------------------------------------------------
+# encoder + RVQ (the voice-cloning acoustic prompt)
+# --------------------------------------------------------------------------
+
+def _res_unit(p: Params, x: torch.Tensor, dilations=(1, 3)) -> torch.Tensor:
+    h = causal_conv1d(_gelu(x), p["c1"]["w"], p["c1"]["b"],
+                      dilation=dilations[0])
+    h = causal_conv1d(_gelu(h), p["c2"]["w"], p["c2"]["b"],
+                      dilation=dilations[1])
+    return x + h
+
+
+def encode_waveform(params: Params, cfg: ModelConfig,
+                    wav: torch.Tensor) -> torch.Tensor:
+    """Waveform [B, N] -> latents [B, T, D] at the codec frame rate (N a
+    multiple of ``cfg.codec.hop``; callers pad with zeros). Runs in the
+    encoder weights' dtype (the JAX package reads it from ``dec``, which a
+    code2wav tree lacks)."""
+    cc = cfg.codec
+    enc = params["enc"]
+    x = wav[..., None].to(enc["in_conv"]["w"].dtype)               # [B, N, 1]
+    x = causal_conv1d(x, enc["in_conv"]["w"], enc["in_conv"]["b"])
+    for stage, rate in zip(enc["stages"], reversed(cc.upsample_rates)):
+        x = causal_conv1d(x, stage["down"]["w"], stage["down"]["b"],
+                          stride=rate)
+        x = _res_unit(stage["res"], x)
+    latent = causal_conv1d(x, enc["proj"]["w"], enc["proj"]["b"])
+    return rmsnorm(latent, enc["ln"], 1e-6)
+
+
+def _nearest(resid: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """argmin_v |r - e_v|^2 as argmin_v (|e_v|^2 - 2 r.e_v), in f32 (the
+    first index on ties): resid [B, T, D], table [V, D] -> [B, T]."""
+    tf = table.float()
+    dots = torch.einsum("btd,vd->btv", resid.float(), tf)
+    norms = torch.sum(tf * tf, dim=-1)
+    return torch.argmin(norms[None, None, :] - 2.0 * dots, dim=-1)
+
+
+def rvq_quantize(params: Params, cfg: ModelConfig,
+                 latent: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour residual VQ: latent [B, T, D] -> codes [B, Q, T]
+    (int64). code2wav fits its embedding MEAN: the target Q*latent is
+    residual-quantized against the per-quantizer slices of its table."""
+    if cfg.codec_arch == "code2wav":
+        c2w = cfg.code2wav
+        tables = params["c2w"]["code_emb"].reshape(
+            c2w.num_quantizers, c2w.codebook_size, c2w.hidden)
+        resid = latent.float() * c2w.num_quantizers
+        codes = []
+        for q in range(c2w.num_quantizers):
+            idx = _nearest(resid, tables[q])
+            resid = resid - tables[q][idx]
+            codes.append(idx)
+        return torch.stack(codes, dim=1)
+    dec = params["dec"]
+    idx = _nearest(latent, dec["cb0_emb"])
+    resid = latent - dec["cb0_emb"][idx]
+    codes = [idx]
+    for qb in range(cfg.codec.num_codebooks - 1):
+        table = dec["res_emb"][qb]
+        idx = _nearest(resid, table)
+        resid = resid - table[idx]
+        codes.append(idx)
+    return torch.stack(codes, dim=1)
+
+
+def speaker_embedding(params: Params, cfg: ModelConfig, latent: torch.Tensor,
+                      n_frames: int | None = None) -> torch.Tensor:
+    """Mean-pooled encoder latent -> talker-hidden speaker vector
+    [B, D_talker]. ``n_frames``: divide by the real frame count instead of
+    the (bucket-padded) latent length; callers zero the padding rows."""
+    summed = torch.sum(latent.float(), dim=1)
+    pooled = summed / float(n_frames if n_frames is not None
+                            else latent.shape[1])
+    w = params["spk_proj"]["w"].float()
+    return (pooled @ w.T).to(latent.dtype)

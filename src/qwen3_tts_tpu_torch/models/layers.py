@@ -9,7 +9,7 @@ keeps it outside any kernel.
 Shape conventions (the JAX package's):
   x          [B, T, D]
   q/k/v      [B, T, H, hd]
-  KV cache   [B, S, H_kv, hd] per layer
+  KV cache   [B, S, H_kv, hd] per layer (or a ``KVQuant`` pair, int8)
   cos/sin    [T, hd/2] (already sliced to the query positions)
 
 The KV cache is written IN PLACE at ``pos`` (the JAX functions return an
@@ -53,17 +53,77 @@ def rope_tables(
     return torch.cos(freqs).to(device), torch.sin(freqs).to(device)
 
 
+class KVQuant:
+    """int8 KV cache leaf pair: codes ``q`` int8 [..., S, H_kv, hd] and a
+    symmetric per-(position, kv-head) scale ``s`` f32 [..., S, H_kv, 1].
+
+    The scale keeps the codes' rank, so every piece of cache plumbing
+    applies to both leaves alike: indexing returns a ``KVQuant`` of views
+    of both (writes through it land in the cache), and assigning a
+    ``KVQuant`` to an index assigns both leaves (the torch form of the
+    JAX package's ``jax.tree.map`` over the pair). ``shape``, ``dtype`` and
+    ``device`` are the codes'."""
+
+    __slots__ = ("q", "s")
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        self.q, self.s = q, s
+
+    def __getitem__(self, idx) -> "KVQuant":
+        return KVQuant(self.q[idx], self.s[idx])
+
+    def __setitem__(self, idx, value: "KVQuant") -> None:
+        self.q[idx] = value.q
+        self.s[idx] = value.s
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.q.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+
 def kv_env_format() -> str:
-    """The KV cache format knob QWEN3_TTS_KV: dense (the default) or int8,
-    whose ``KVQuant`` cache waits for ROADMAP queue A, item 11."""
+    """The KV cache format knob QWEN3_TTS_KV: dense (the default) or int8."""
     v = os.environ.get("QWEN3_TTS_KV", "").strip().lower()
     if v in ("", "0", "dense", "bf16"):
         return "dense"
     if v == "int8":
-        raise NotImplementedError(
-            "QWEN3_TTS_KV=int8 (the KVQuant int8 KV cache) waits for ROADMAP "
-            "queue A, item 11")
+        return "int8"
     raise ValueError(f"QWEN3_TTS_KV={v!r}: expected 'int8' or 'dense'")
+
+
+def kv_cache_init(shape: tuple, dtype, kv_format: str | None = None,
+                  device="cpu"):
+    """One zeroed KV cache buffer: dense [..., S, H_kv, hd] of ``dtype``, or
+    a ``KVQuant`` pair when ``kv_format`` (default: QWEN3_TTS_KV) is int8.
+    Zero scales dequantize unwritten rows to exact zeros, as the dense
+    init (those rows are position-masked anyway)."""
+    fmt = kv_env_format() if kv_format is None else kv_format
+    if fmt == "int8":
+        return KVQuant(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros((*shape[:-1], 1), dtype=torch.float32,
+                                   device=device))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def kv_quantize(x: torch.Tensor) -> KVQuant:
+    """Symmetric per-(position, head) int8 quantization over head_dim."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return KVQuant(q, s)
+
+
+def kv_dequantize(c: KVQuant, dtype) -> torch.Tensor:
+    # int8 values are exact in f32; one rounding on the downcast
+    return (c.q.float() * c.s).to(dtype)
 
 
 def rope_slice(cos_table, sin_table, pos, T: int):
@@ -90,44 +150,74 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 class AttnOut(NamedTuple):
     out: torch.Tensor          # [B, T, D]
-    cache_k: torch.Tensor      # [B, S, H_kv, hd], updated in place
+    cache_k: torch.Tensor      # [B, S, H_kv, hd] or KVQuant, updated in place
     cache_v: torch.Tensor
+
+
+def _row_scale(c: KVQuant) -> torch.Tensor:
+    """Per-row scales [B, S, H_kv, 1] -> [B, H_kv, 1, 1, S], broadcast over
+    scores/probabilities [B, H_kv, g, T, S]."""
+    return c.s.permute(0, 2, 3, 1)[:, :, :, None, :]
 
 
 def _scores_ctx(qg, keys, values, qry_idx: torch.Tensor, pad_b, head_dim: int,
                 out_dtype) -> torch.Tensor:
     """Masked GQA attention read over a cache: qg [B, T, H_kv, g, hd],
-    keys/values [B, S, H_kv, hd] -> ctx [B, T, H_kv, g, hd]. Keys are
-    allowed where ``pad_b <= key <= qry_idx`` (qry_idx [B|1, T, 1], pad_b
-    an int or [B, 1, 1]); padded queries may attend to themselves. Scores
-    and softmax in f32; probabilities rounded to the cache type before the
-    value product (f32 accumulation), as in the JAX package."""
+    keys/values [B, S, H_kv, hd] (dense or ``KVQuant``) -> ctx
+    [B, T, H_kv, g, hd]. Keys are allowed where ``pad_b <= key <= qry_idx``
+    (qry_idx [B|1, T, 1], pad_b an int or [B, 1, 1]); padded queries may
+    attend to themselves. Scores and softmax in f32; probabilities rounded
+    to the cache type before the value product (f32 accumulation), as in
+    the JAX package.
+
+    An int8 cache is read scale-factored, with no dequantized buffer: the
+    row scale is constant over head_dim, so ``q·(k_q·s) = (q·k_q)·s`` on
+    the scores and ``Σ p·(v_q·s) = Σ (p·s)·v_q`` on the context, ``p·s``
+    rounded to the query's dtype (the JAX package's order)."""
+    k_quant = isinstance(keys, KVQuant)
     S = keys.shape[1]
-    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), keys.float())
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(),
+                          (keys.q if k_quant else keys).float())
+    if k_quant:
+        scores = scores * _row_scale(keys)
     scores = scores * (head_dim ** -0.5)
     key_idx = torch.arange(S, device=qg.device)[None, None, :]   # [1, 1, S]
     allowed = ((key_idx <= qry_idx) & (key_idx >= pad_b)) | (key_idx == qry_idx)
     scores = scores.masked_fill(~allowed[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(values.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if isinstance(values, KVQuant):
+        probs = (probs * _row_scale(values)).to(qg.dtype)
+        v_mat = values.q
+    else:
+        probs = probs.to(values.dtype)
+        v_mat = values
     return torch.einsum(
-        "bhgts,bshd->bthgd", probs.float(), values.float()
+        "bhgts,bshd->bthgd", probs.float(), v_mat.float()
     ).to(out_dtype)
 
 
-def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
-    """Write new [B, T, ...] into cache [B, S, ...] at ``pos`` in place. A
-    [B] ``pos`` writes each row at its own offset, clamped to [0, S - T]
-    as ``jax.lax.dynamic_update_slice`` clamps (a serving slot that is not
+def _write_rows(cache, new: torch.Tensor, pos) -> None:
+    """Write new [B, T, ...] into cache [B, S, ...] at ``pos`` in place,
+    quantized first when the cache is a ``KVQuant``. A [B] ``pos`` writes
+    each row at its own offset, clamped to [0, S - T] as
+    ``jax.lax.dynamic_update_slice`` clamps (a serving slot that is not
     decoding holds a stale position and rewrites its own last rows)."""
+    if isinstance(cache, KVQuant):
+        new = kv_quantize(new)
+        pairs = ((cache.q, new.q), (cache.s, new.s))
+    else:
+        pairs = ((cache, new.to(cache.dtype)),)
     T = new.shape[1]
     if not isinstance(pos, torch.Tensor):
-        cache[:, pos:pos + T] = new
+        for c, u in pairs:
+            c[:, pos:pos + T] = u
         return
     B, S = cache.shape[:2]
     start = pos.clamp(0, S - T)[:, None]
     rows = start + torch.arange(T, device=pos.device)[None, :]     # [B, T]
     batch = torch.arange(B, device=pos.device)[:, None].expand(B, T)
-    cache.index_put_((batch, rows), new)
+    for c, u in pairs:
+        c.index_put_((batch, rows), u)
 
 
 def attention(
@@ -176,8 +266,8 @@ def attention(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    _write_rows(cache_k, k.to(cache_k.dtype), pos)
-    _write_rows(cache_v, v.to(cache_v.dtype), pos)
+    _write_rows(cache_k, k, pos)
+    _write_rows(cache_v, v, pos)
 
     qg = q.reshape(B, T, n_kv_heads, groups, head_dim)
     steps = torch.arange(T, device=x.device)

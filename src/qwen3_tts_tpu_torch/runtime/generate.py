@@ -39,7 +39,7 @@ from ..models.codec import (
     max_stream_frames,
 )
 from ..models.layers import (
-    fuse_block_projections, kv_env_format, rope_tables, unstack_layers,
+    fuse_block_projections, kv_cache_init, rope_tables, unstack_layers,
 )
 from ..models.talker import (
     merge_step_embs,
@@ -431,12 +431,13 @@ class Generator:
         return make_prefill_fn(self.cfg)
 
     def _alloc_cache(self, batch: int = 1):
-        kv_env_format()  # the int8 KV cache is not ported yet: raises
+        """The talker's K and V caches [L, batch, S, H_kv, hd]: dense, or
+        ``KVQuant`` pairs under QWEN3_TTS_KV=int8 (read per utterance)."""
         t = self.cfg.talker
         shape = (t.n_layers, batch, self.cfg.max_seq_len, t.n_kv_heads,
                  t.head_dim)
-        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
-                torch.zeros(shape, dtype=self.dtype, device=self.device))
+        return (kv_cache_init(shape, self.dtype, device=self.device),
+                kv_cache_init(shape, self.dtype, device=self.device))
 
     def _seed_tokens(self, hidden_last, logits, generator) -> torch.Tensor:
         """The seed step's token [B, 1] from the prefill logits: it

@@ -45,7 +45,7 @@ import torch
 from ..engine.configs import ModelConfig
 from ..engine.weights import _leaves
 from ..models.codec import init_codec_stream_state, max_stream_frames
-from ..models.layers import kv_env_format, rope_tables
+from ..models.layers import kv_cache_init, kv_env_format, rope_tables
 from ..models.talker import talker_forward
 from . import generate
 from .generate import (
@@ -191,7 +191,6 @@ class ServingEngine:
         accumulate_wav: bool = False,
         accum_cap_frames: int = 600,
     ):
-        kv_env_format()  # the int8 KV cache is not ported yet: raises
         self.model = model
         self.cfg: ModelConfig = model.cfg
         # the generator's decode-layout trees (fused, grouped, per-layer):
@@ -199,7 +198,8 @@ class ServingEngine:
         gen = model.generator
         self.params, self.cp_params = gen.params, gen.cp_params
         self.codec_params = gen.codec_params
-        self.device, dtype = gen.device, gen.dtype
+        self.device = gen.device
+        self.dtype = dtype = gen.dtype
         self.B = max_streams
         t = self.cfg.talker
         if chunk_schedule is not None:
@@ -211,8 +211,12 @@ class ServingEngine:
         self.sampling = sampling or SamplingConfig()
         dev, B = self.device, self.B
         shape = (t.n_layers, B, self.cfg.max_seq_len, t.n_kv_heads, t.head_dim)
-        self.cache_k = torch.zeros(shape, dtype=dtype, device=dev)
-        self.cache_v = torch.zeros(shape, dtype=dtype, device=dev)
+        # dense by default; QWEN3_TTS_KV=int8 stores the talker caches as
+        # KVQuant pairs. The format is read once: the prefill scratch caches
+        # must match the slot caches even if the variable changes mid-run
+        self.kv_format = kv_env_format()
+        self.cache_k = self._kv_zeros(shape)
+        self.cache_v = self._kv_zeros(shape)
         self.cstate = init_codec_stream_state(self.cfg, B, dtype=dtype,
                                               device=dev)
         self.pos = torch.zeros(B, dtype=torch.long, device=dev)
@@ -259,6 +263,11 @@ class ServingEngine:
         self._decode_fns: dict[tuple[int, tuple[int, ...]], Callable] = {}
         self._host_pos = [0] * B      # host mirror for attention windows
         self._host_frames = [0] * B   # dispatched frames (chunk picking)
+
+    def _kv_zeros(self, shape: tuple):
+        """A zeroed talker cache buffer in the engine's format."""
+        return kv_cache_init(shape, self.dtype, kv_format=self.kv_format,
+                             device=self.device)
 
     @property
     def chunk(self) -> int:
@@ -401,9 +410,7 @@ class ServingEngine:
             if pp.sk is None:
                 t = self.cfg.talker
                 shape = (t.n_layers, 1, pp.Lb, t.n_kv_heads, t.head_dim)
-                pp.sk = torch.zeros(shape, dtype=self.cache_k.dtype,
-                                    device=self.device)
-                pp.sv = torch.zeros_like(pp.sk)
+                pp.sk, pp.sv = self._kv_zeros(shape), self._kv_zeros(shape)
             C = min(self.prefill_chunk, pp.Lb - pp.pos)
             self._prefill_slice(pp, C)
             pp.pos += C
@@ -445,9 +452,7 @@ class ServingEngine:
             if nb < 2 or nb * Lb > max_rows:
                 continue
             shape = (t.n_layers, nb, Lb, t.n_kv_heads, t.head_dim)
-            sk = torch.zeros(shape, dtype=self.cache_k.dtype,
-                             device=self.device)
-            sv = torch.zeros_like(sk)
+            sk, sv = self._kv_zeros(shape), self._kv_zeros(shape)
             pads = torch.tensor([pp.pad for pp in group], device=self.device)
             cos_t, sin_t = rope_tables(self.cfg.max_seq_len, t.head_dim,
                                        t.rope_theta, self.device)

@@ -581,3 +581,76 @@ def test_float32_serving_codes_equal_the_cpus_on_cuda(no_tf32, monkeypatch):
     for got, want in zip(codes["cuda"], codes["cpu"]):
         assert want.shape[1] > 0
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_kv_cache_codes_equal_the_cpus_on_cuda(no_tf32, monkeypatch):
+    """QWEN3_TTS_KV=int8 on a tiny float32 int8 model (grouped layout):
+    single-stream and serving (a stream joining mid-flight) greedy codes on
+    the card equal the CPU's."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.models.layers import KVQuant
+    from qwen3_tts_tpu_torch.runtime.prompts import PromptSpec
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    monkeypatch.setenv("QWEN3_TTS_INT8_LAYOUT", "grouped")
+    monkeypatch.setenv("QWEN3_TTS_KV", "int8")
+    cfg = dataclasses.replace(configs.tiny(quant=True), dtype="float32")
+    prompts = [PromptSpec(text_tokens=np.arange(6 + i, dtype=np.int32) * 7 % 200,
+                          speaker_id=i) for i in range(3)]
+    codes = {}
+    for dev in ("cpu", no_tf32):
+        model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+        model.sampling = SamplingConfig(greedy=True)
+        eng = model.serving_engine(4)
+        assert isinstance(eng.cache_k, KVQuant)
+        ids = [eng.submit(p, max_frames=12) for p in prompts[:2]]
+        eng.step()
+        ids.append(eng.submit(prompts[2], max_frames=8))
+        while not all(eng.streams[i].done for i in ids):
+            eng.step()
+        codes[str(dev)] = [np.concatenate(eng.collect(i)[1].codes, axis=1)
+                           for i in ids] + [model.generator.synthesize(
+                               prompts[0], max_frames=12,
+                               collect_codes=True).codes]
+    for got, want in zip(codes["cuda"], codes["cpu"]):
+        assert want.shape[1] > 0
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_float32_clone_codes_equal_the_cpus_on_cuda(no_tf32, monkeypatch,
+                                                    tmp_path):
+    """synthetic:tiny:base at float32 (grouped layout) clones a fixed 1 s
+    reference: its reference codes and greedy codes on the card equal the
+    CPU's (the reference leaves the RVQ argmins a relative margin of
+    3.5e-3)."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    monkeypatch.setenv("QWEN3_TTS_INT8_LAYOUT", "grouped")
+    rng = np.random.default_rng(3)
+    t = np.arange(24000) / 24000
+    f = 110 + 40 * np.sin(2 * np.pi * 0.7 * t)
+    clip = (0.3 * np.sin(2 * np.pi * np.cumsum(f) / 24000)
+            + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    ref = str(tmp_path / "ref.wav")
+    write_wav(ref, clip, 24000)
+    cfg = dataclasses.replace(configs.tiny("base", quant=True), dtype="float32")
+    out = {}
+    for dev in ("cpu", no_tf32):
+        model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+        model.sampling = SamplingConfig(greedy=True)
+        prompt = prepare_segments(model, "Hello there.", ref_audio=ref,
+                                  ref_text="A reference.")[0][0]
+        out[str(dev)] = (prompt.acoustic_codes, model.generator.synthesize(
+            prompt, max_frames=12, collect_codes=True).codes)
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])

@@ -453,9 +453,18 @@ def test_engine_shares_the_generators_weights(model):
 
 
 def test_int8_kv_cache_raises_naming_item_11(model, monkeypatch):
+    """Item 11's int8 KV cache is ported: QWEN3_TTS_KV=int8 gives KVQuant
+    slot caches, the format read once at construction (a scratch cache
+    allocated after the variable changes still matches the slots'); an
+    unknown value raises."""
+    from qwen3_tts_tpu_torch.models.layers import KVQuant
+
     monkeypatch.setenv("QWEN3_TTS_KV", "int8")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServingEngine(model, max_streams=2)
+    eng = ServingEngine(model, max_streams=2, chunk=4, sampling=GREEDY)
+    assert isinstance(eng.cache_k, KVQuant) and isinstance(eng.cache_v, KVQuant)
+    monkeypatch.delenv("QWEN3_TTS_KV")
+    (_, stream), = eng.run([_prompt(5)], max_frames=6)
+    assert stream.frames > 0 and isinstance(eng._kv_zeros((1, 2)), KVQuant)
     monkeypatch.setenv("QWEN3_TTS_KV", "fp8")
     with pytest.raises(ValueError, match="QWEN3_TTS_KV"):
         ServingEngine(model, max_streams=2)

@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import warnings
 import wave
 from pathlib import Path
 from unittest import mock
@@ -162,45 +163,85 @@ def _with_fps(cfg, fps: int):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m, d: tapi.load_model("synthetic:tiny:base", device="cpu"), "12"),
-    # the code2wav decoder runs; its cloning (base) mode still waits
-    (lambda m, d: tapi.load_model("synthetic:tiny-code2wav:base",
-                                  device="cpu"), "12"),
     # the published protocol runs at one frame a step; MTP still waits
     (lambda m, d: tapi.Qwen3TTSModel.synthetic(
         _with_fps(tcfgs.tiny_feedback(), 2), device="cpu"), "9"),
-    # checkpoint directories load (test_torch_import_slice.py); cloning
-    # from one still waits
-    (lambda m, d: tapi.load_model(d, device="cpu", mode="base"), "12"),
     (lambda m, d: tapi.generate_audio(model=m, text="x", voice="ryan",
                                       output_path=d, speed=1.3), "13"),
-    (lambda m, d: tapi.generate_audio(model=m, text="x", output_path=d,
-                                      ref_audio="ref.wav"), "12"),
-    # the KVQuant int8 KV cache is the rest of item 11
-    (lambda m, d: _with_env({"QWEN3_TTS_KV": "int8"}, lambda: tapi.generate_audio(
-        model=m, text="x", voice="ryan", output_path=d)), "11"),
-], ids=["base_mode", "code2wav", "residual_sum_mtp", "checkpoint_dir",
-        "speed", "ref_audio", "kv_int8"])
+], ids=["residual_sum_mtp", "speed"])
 def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
     model = tapi.load_model("synthetic:tiny", device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         call(model, temp_dir)
 
 
+def _reference_wav(temp_dir: str) -> str:
+    from qwen3_tts_tpu_torch.audio import write_wav
+
+    rng = np.random.default_rng(0)
+    path = os.path.join(temp_dir, "ref.wav")
+    write_wav(path, (0.2 * rng.standard_normal(24000)).astype(np.float32),
+              24000)
+    return path
+
+
+def _snapshot_base(d: str):
+    from qwen3_tts_tpu_torch.engine.fabricate import fabricate_full_checkpoint
+
+    return tapi.load_model(fabricate_full_checkpoint(os.path.join(d, "snap")),
+                           device="cpu", mode="base")
+
+
+@pytest.mark.parametrize("build,kw", [
+    (lambda d: tapi.load_model("synthetic:tiny:base", device="cpu"),
+     {"ref_audio": True}),
+    (lambda d: tapi.load_model("synthetic:tiny-code2wav:base", device="cpu"),
+     {"ref_audio": True}),
+    (_snapshot_base, {"ref_audio": True}),
+    (lambda d: tapi.load_model("synthetic:tiny", device="cpu"),
+     {"ref_audio": True, "voice": "ryan"}),
+    (lambda d: tapi.load_model("synthetic:tiny", device="cpu"),
+     {"voice": "ryan", "env": {"QWEN3_TTS_KV": "int8"}}),
+], ids=["base_mode", "code2wav", "checkpoint_dir", "ref_audio", "kv_int8"])
+def test_features_that_raised_now_run_and_write_their_wav(build, kw, temp_dir):
+    """What raised for ROADMAP items 11 and 12 runs now: the base (cloning)
+    mode of synthetic names and of a checkpoint directory, ref_audio in any
+    mode, and the int8 KV cache, each writing frames x hop samples (less the
+    code2wav decoder's run-in)."""
+    model = build(temp_dir)
+    args = dict(model=model, text=TEXT, output_path=temp_dir, max_frames=8,
+                voice=kw.get("voice"))
+    if kw.get("ref_audio"):
+        args.update(ref_audio=_reference_wav(temp_dir),
+                    ref_text="A reference transcript.")
+    m = _with_env(kw.get("env", {}), lambda: tapi.generate_audio(**args))
+    cfg = model.cfg
+    skip = cfg.code2wav.startup_samples if cfg.codec_arch == "code2wav" else 0
+    with wave.open(os.path.join(temp_dir, "audio_000.wav"), "rb") as w:
+        assert w.getnframes() == m["frames"] * cfg.codec.hop - skip
+        pcm = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    assert m["frames"] > 0 and pcm.any()
+
+
 def test_a_checkpoint_directory_loads_and_its_cloning_names_item_12(temp_dir):
-    """What raised for item 10 loads now; a missing path is not found, and
-    the loaded model's cloning still waits for item 12."""
+    """What raised for items 10 and 12 runs: a missing path is not found;
+    the fixture's Mimi speech tokenizer maps (no warning), and the loaded
+    directory clones through it and speaks with a preset voice."""
     from qwen3_tts_tpu_torch.engine.fabricate import fabricate_full_checkpoint
 
     with pytest.raises(FileNotFoundError):
         tapi.load_model(os.path.join(temp_dir, "absent"), device="cpu")
     snap = fabricate_full_checkpoint(os.path.join(temp_dir, "snap"))
-    with pytest.warns(UserWarning, match="speech_tokenizer"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         model = tapi.load_model(snap, device="cpu")
     assert model.import_report.unmapped == []
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tapi.generate_audio(model=model, text="x", output_path=temp_dir,
-                            ref_audio="ref.wav")
+    assert model.import_report.speech_tokenizer["family"] == "mimi"
+    assert model.st_params is not None
+    m = tapi.generate_audio(model=model, text=TEXT, output_path=temp_dir,
+                            ref_audio=_reference_wav(temp_dir),
+                            ref_text="A reference transcript.", max_frames=4)
+    assert m["frames"] > 0
     m = tapi.generate_audio(model=model, text=TEXT, voice="ryan",
                             output_path=temp_dir, max_frames=4)
     assert m["frames"] > 0

@@ -246,15 +246,15 @@ def test_import_matches_jax_bit_for_bit(name, temp_dir):
     for comp in ("params", "cp_params", "codec_params"):
         assert_trees_equal(getattr(got, comp), getattr(ref, comp))
     r, g = ref.import_report, got.import_report
-    # the JAX package maps a Mimi speech tokenizer; the port preserves it
-    assert g.assigned == {k: v for k, v in r.assigned.items()
-                          if k != "speech_tokenizer"}
+    assert g.assigned == r.assigned
     assert g.synthetic == r.synthetic
-    assert g.unmapped == [u for u in r.unmapped
-                          if not u.startswith("speech_tokenizer")]
+    assert g.unmapped == r.unmapped
     assert g.prompt_template == r.prompt_template
-    if name == "full":
-        assert g.speech_tokenizer["preserved"] and got.st_raw
+    assert g.speech_tokenizer == r.speech_tokenizer
+    if name == "full":  # the fixture's Mimi speech tokenizer maps
+        assert g.speech_tokenizer["family"] == "mimi" and got.st_raw is None
+        assert dataclasses.asdict(got.st_cfg) == dataclasses.asdict(ref.st_cfg)
+        assert_trees_equal(got.st_params, ref.st_params)
     if name == "feedback":
         assert got.cfg.talker.feedback == "residual_sum"
     if name == "missing_linear":
@@ -291,9 +291,8 @@ def test_import_errors_match_jax(case, temp_dir):
 @pytest.mark.parametrize("name", ["feedback", "full"])
 def test_native_directories_load_across_packages(name, temp_dir):
     """JAX save_model -> port load_native, and port save_model -> JAX
-    load_native: equal configs and trees (``full`` carries the JAX
-    package's mapped speech tokenizer one way and the port's preserved
-    tensors the other)."""
+    load_native: equal configs and trees (``full`` carries the mapped
+    speech tokenizer both ways)."""
     snap = os.path.join(temp_dir, "snap")
     SNAPSHOTS[name][0](snap)
     ref = _quiet(jw.import_hf_checkpoint, snap)
@@ -309,8 +308,11 @@ def test_native_directories_load_across_packages(name, temp_dir):
             assert_trees_equal(getattr(loaded, comp), getattr(ref, comp))
     from_jax = tw.load_native(jax_dir)
     if name == "full":
-        assert from_jax.st_cfg and from_jax.st_params  # carried verbatim
-        assert _quiet(jw.load_native, port_dir).st_raw
+        from_port = _quiet(jw.load_native, port_dir)
+        for loaded in (from_jax, from_port):
+            assert dataclasses.asdict(loaded.st_cfg) == \
+                dataclasses.asdict(ref.st_cfg)
+            assert_trees_equal(loaded.st_params, ref.st_params)
     tw.save_model(from_jax, os.path.join(temp_dir, "again"))
     assert_trees_equal(tw.load_native(os.path.join(temp_dir, "again")).st_params,
                        from_jax.st_params)
@@ -324,8 +326,8 @@ def test_load_checkpoint_caches_only_complete_imports(temp_dir):
     assert os.path.exists(os.path.join(full, tw.NATIVE_DIR, tw.NATIVE_CONFIG))
     again = tw.load_checkpoint(full)
     assert set(again.load_times) == {"native_load_s"}
-    assert again.st_raw is not None and again.template.source == "file"
-    for comp in ("params", "cp_params", "codec_params"):
+    assert again.st_raw is None and again.template.source == "file"
+    for comp in ("params", "cp_params", "codec_params", "st_params"):
         assert_trees_equal(getattr(again, comp), getattr(first, comp))
 
     partial = os.path.join(temp_dir, "partial")
