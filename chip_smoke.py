@@ -80,7 +80,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    published widths, with load_model(dir, mode="base"), encodes a 5 s
    reference (time, frames, bucket) and runs generate_audio(ref_audio=...,
    ref_text=...) for 64 frames (RTF, TTFA, peak memory, kernel A launches
-   a frame).
+   a frame);
+12. phase ``asr`` (models/whisper.py): a tiny float32 Whisper from one
+   fabricated directory on the card and on the CPU, whose greedy tokens
+   and n_valid must be equal; then a snapshot at the published widths of
+   openai/whisper-large-v3-turbo (1280 wide, 32 + 4 layers, 128 mels,
+   51,866 ids, F16 on disk, ~1.62 GB; the temp directory needs 3 GB
+   free) fabricated and loaded with WhisperASR on the card, a 5 s clip
+   transcribed cold and warm (load, encode and decode seconds, decode
+   steps, tokens, n_valid, peak memory, kernel launches), and the same
+   text through transcription.transcribe_wav; step ``quality`` (after
+   phase ``server``, on its model): one compare_decode_configs step of
+   the int8 KV cache against the dense one, 64 frames, the turbo Whisper
+   transcribing (mel distance and WER printed, not gated);
+13. phase ``server`` (server.py, client side over loopback): a tiny
+   float32 greedy model behind TTSService and make_server on the card and
+   on the CPU, whose two-segment /v1/synthesize WAV must equal
+   generate_audio's on the same device and the card's the CPU's within 2
+   LSB; then flagship_feedback_code2wav behind TTSService(max_streams=8):
+   eight concurrent clients of 64 frames (four complete, three streaming,
+   one of them at speed 1.25, one OpenAI /v1/audio/speech), client-side
+   TTFA p50/max (first body byte of a stream), aggregate RTF over the
+   responses' audio beside the serving phase's ServingEngine.run, kernel
+   A launches a frame, peak memory; a streaming client dropped after its
+   first chunk, whose slot must free; /healthz, /v1/models and /metrics
+   with the request and error counters checked; step ``batch``: run_batch
+   over eight items through the same service.
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -370,10 +395,17 @@ def main() -> None:
     checked_f32: dict = {}
     phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
     launches, shapes, rtfs = phase_main_paths(torch)
-    counts, ran = phase_serving(torch, rtfs["flagship_feedback_code2wav"])
-    for name, run in ran.items():
-        shapes.setdefault(name, set()).update(run)
-    launches = {name: launches[name] + counts[name] for name in launches}
+    counts, ran, serving_rtf = phase_serving(
+        torch, rtfs["flagship_feedback_code2wav"])
+    asr, asr_snapshot = phase_asr(torch)
+    server_counts, server_ran = phase_server(torch, serving_rtf, asr)
+    del asr
+    asr_snapshot.cleanup()
+    for run_shapes in (ran, server_ran):
+        for name, run in run_shapes.items():
+            shapes.setdefault(name, set()).update(run)
+    launches = {name: launches[name] + counts[name] + server_counts[name]
+                for name in launches}
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -1175,7 +1207,8 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
     configs.flagship_feedback_code2wav() (grouped layout) serving eight
     streams of SERVING_FRAMES frames after one warm run, every WAV checked;
     then a generate_audio call of at least three segments. Returns each
-    kernel's launches over both measured runs and the shapes they ran."""
+    kernel's launches over both measured runs, the shapes they ran, and
+    the dense step's aggregate RTF."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import generate_audio, prepare_segments
@@ -1289,7 +1322,7 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_KV")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
-    return counts, shapes
+    return counts, shapes, dense["aggregate_rtf"]
 
 
 def _serving_step_row(results, wall: float, peak: float, counts: dict,
@@ -1331,6 +1364,461 @@ def _serving_step_row(results, wall: float, peak: float, counts: dict,
             "grouped_qmv_launches_per_frame":
                 counts["grouped_qmv"] / sum(frames),
             "peak_mem_gb": peak}
+
+
+# --------------------------------------------------------------------------
+# phase asr: Whisper on the card
+# --------------------------------------------------------------------------
+
+TINY_WHISPER = (32, (2, 2), 4, 64, 8, 51_000)  # tests/test_whisper.py widths
+ASR_CLIP_S = 5.0
+ASR_DISK_NEED = 3 * GB  # the F16 snapshot (~1.62 GB) and slack
+
+
+def phase_asr_reference(torch) -> None:
+    """A tiny float32 Whisper from one fabricated directory on the card and
+    on the CPU: the greedy tokens and n_valid of a fixed window must be
+    equal."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine.fabricate import (
+        whisper_config_dict, write_whisper_snapshot)
+    from qwen3_tts_tpu_torch.models.whisper import WhisperASR, pad_or_trim
+
+    rng = np.random.default_rng(5)
+    window = pad_or_trim((0.2 * rng.standard_normal(3 * 16_000)).astype(
+        np.float32))
+    with tempfile.TemporaryDirectory(prefix="q3tts_whisper_tiny_") as d:
+        write_whisper_snapshot(d, whisper_config_dict(*TINY_WHISPER), seed=0)
+        out = {dev: WhisperASR(d, device=dev).decode_window(window, max_new=32)
+               for dev in ("cpu", "cuda")}
+    (tc, nc), (tg, ng) = out["cpu"], out["cuda"]
+    lead = int(np.argmax(tc != tg)) if (tc != tg).any() else len(tc)
+    log({"phase": "asr", "step": "reference", "dtype": "float32",
+         "n_valid_cpu": nc, "n_valid_card": ng,
+         "tokens_equal_before_first_difference": lead,
+         "distinct_tokens": len(set(tc.tolist()))})
+    if nc != ng or not np.array_equal(tc, tg):
+        fail(f"asr reference: the card's greedy tokens or n_valid ({ng}) "
+             f"differ from the CPU's ({nc}); equal for {lead} tokens")
+
+
+def phase_asr(torch):
+    """phase_asr_reference, then a Whisper snapshot at
+    openai/whisper-large-v3-turbo's published widths (F16 on disk,
+    fabricated) loaded with WhisperASR on the card and called directly: a
+    5 s clip transcribed cold and warm (load, encode and decode seconds,
+    decode steps, tokens, n_valid, peak memory, kernel launches), then the
+    same text through transcription.transcribe_wav with
+    QWEN3_TTS_ASR_MODEL pointed at the directory. Returns (the loaded
+    WhisperASR, the snapshot's TemporaryDirectory), kept for the quality
+    step."""
+    import shutil
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch import transcription
+    from qwen3_tts_tpu_torch.audio import write_wav
+    from qwen3_tts_tpu_torch.engine.fabricate import (
+        WHISPER_LARGE_V3_TURBO, write_whisper_snapshot)
+    from qwen3_tts_tpu_torch.models import whisper
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    phase_asr_reference(torch)
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < ASR_DISK_NEED:
+        fail(f"asr: {free / GB:.1f} GB free in {tmp}, the phase needs "
+             f"{ASR_DISK_NEED / GB:.0f} GB")
+    holder = tempfile.TemporaryDirectory(prefix="q3tts_whisper_turbo_")
+    snap = holder.name
+    t0 = time.perf_counter()
+    write_whisper_snapshot(snap, WHISPER_LARGE_V3_TURBO, seed=0,
+                           dtype=np.float16)
+    fab_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(snap, "model.safetensors"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    asr = whisper.WhisperASR(snap, device="cuda")
+    def n_leaves(t):
+        return (sum(n_leaves(v) for v in t.values()) if isinstance(t, dict)
+                else t.numel())
+
+    n_params = n_leaves(asr.params)
+    clip = os.path.join(snap, "clip.wav")
+    write_wav(clip, reference_clip(ASR_CLIP_S), 24000)
+    cuda_kernels.reset_launch_counts()
+    runs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        text = asr.transcribe_wav(clip)
+        torch.cuda.synchronize()
+        runs.append({"run": label, "wall_s": time.perf_counter() - t0,
+                     "chars": len(text)})
+    # the warm window's pieces, timed apart
+    from qwen3_tts_tpu_torch.audio import read_wav, resample, to_mono
+
+    data, rate = read_wav(clip)
+    window = whisper.pad_or_trim(resample(to_mono(data), rate, 16_000))
+    with torch.no_grad():
+        audio = torch.from_numpy(window).to(asr.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = whisper.log_mel_spectrogram(audio, asr.cfg.n_mels, asr.filters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        whisper.encode(asr.params, asr.cfg, feats)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tokens, n_valid = whisper.greedy_decode(asr.params, asr.cfg, feats,
+                                                asr.prefix, max_new=224)
+        t3 = time.perf_counter()
+    counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    P = len(asr.prefix)
+    steps = P - 1 + min(n_valid + 1, 224)
+    encode_s = t2 - t1
+    log({"phase": "asr", "step": "turbo", "config": "openai/whisper-large-v3-turbo",
+         "d_model": asr.cfg.d_model, "layers": [asr.cfg.encoder_layers,
+                                                asr.cfg.decoder_layers],
+         "heads": asr.cfg.n_heads, "ffn": asr.cfg.ffn, "n_mels": asr.cfg.n_mels,
+         "vocab": asr.cfg.vocab_size, "params": n_params,
+         "snapshot_bytes": nbytes, "fabricate_s": fab_s, **asr.load_times,
+         "clip_s": ASR_CLIP_S, "runs": runs, "mel_s": t1 - t0,
+         "encode_s": encode_s, "decode_s": (t3 - t2) - encode_s,
+         "decode_steps": steps,
+         "decode_ms_per_step": 1e3 * ((t3 - t2) - encode_s) / steps,
+         "prefix": asr.prefix.tolist(), "n_valid": n_valid,
+         "tokens": tokens[:min(n_valid, 16)].tolist(), "text_chars": len(text),
+         "peak_mem_gb": (torch.cuda.max_memory_allocated() - base_mem) / 1e9,
+         "launches": counts})
+    if not text or not np.isfinite(feats.float().cpu().numpy()).all():
+        fail("asr turbo: an empty transcript or non-finite features")
+    os.environ["QWEN3_TTS_ASR_MODEL"] = snap
+    transcription._asr_cache.clear()
+    t0 = time.perf_counter()
+    via = transcription.transcribe_wav(clip)
+    provider_s = time.perf_counter() - t0
+    transcription._asr_cache.clear()
+    os.environ.pop("QWEN3_TTS_ASR_MODEL")
+    log({"phase": "asr", "step": "provider", "wall_s": provider_s,
+         "equal_to_direct": via == text})
+    if via != text:
+        fail("asr provider: transcription.transcribe_wav's text differs from "
+             "WhisperASR's")
+    torch.cuda.empty_cache()
+    return asr, holder
+
+
+def phase_quality(torch, model, asr) -> None:
+    """One compare_decode_configs step: the int8 KV cache against the
+    dense one on ``model`` (the feedback flagship), one text of 64 frames,
+    the turbo Whisper transcribing (not gated: the weights are random)."""
+    from qwen3_tts_tpu_torch import quality
+
+    t0 = time.perf_counter()
+    rep = quality.compare_decode_configs(
+        model, {"kv8": {"kv": "int8"}}, [SERVING_TEXTS[0]], asr.transcribe_wav,
+        voice="ryan", max_frames=SERVING_FRAMES)
+    v = rep["variants"]["kv8"]
+    row = v["rows"][0]
+    log({"phase": "asr", "step": "quality", "variant": "kv=int8",
+         "frames_budget": SERVING_FRAMES, "wall_s": time.perf_counter() - t0,
+         "median_mel_dist": v["median_mel_dist"],
+         "median_identical_frac": v["median_identical_frac"],
+         "median_wer_delta": v["median_wer_delta"],
+         "wer_baseline": row["wer_baseline"], "wer_variant": row["wer_variant"]})
+    if not math.isfinite(v["median_mel_dist"]) or v["median_wer_delta"] is None:
+        fail("asr quality: no mel distance or no WER delta")
+
+
+# --------------------------------------------------------------------------
+# phase server: the HTTP daemon on the card
+# --------------------------------------------------------------------------
+
+SERVER_TEXT = ("First sentence of the request. " * 22
+               + "The second segment starts here.")  # two segments
+
+
+def _http(base: str, path: str, body: dict | None = None,
+          read_first: int | None = None) -> dict:
+    """One request over http.client: status, headers, the body (or its
+    first ``read_first`` bytes, then the connection is dropped), the
+    seconds to the first body byte and to the end."""
+    import http.client
+
+    host, port = base.removeprefix("http://").split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    t0 = time.perf_counter()
+    if body is None:
+        conn.request("GET", path)
+    else:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first = resp.read(1)
+    t_first = time.perf_counter() - t0
+    if read_first is not None:
+        data = first + resp.read(read_first - 1)
+        conn.sock.shutdown(2)
+        conn.close()
+    else:
+        data = first + resp.read()
+        conn.close()
+    return {"status": resp.status, "headers": dict(resp.getheaders()),
+            "body": data, "first_byte_s": t_first,
+            "end_s": time.perf_counter() - t0}
+
+
+def _pcm(resp: dict) -> "np.ndarray":
+    import io
+
+    import numpy as np
+
+    body = resp["body"]
+    if resp["headers"].get("Content-Type") == "audio/pcm":
+        return np.frombuffer(body, np.int16)
+    if resp["headers"].get("Transfer-Encoding") == "chunked":
+        return np.frombuffer(body[44:], np.int16)
+    with wave.open(io.BytesIO(body)) as w:
+        if (w.getnchannels(), w.getsampwidth(), w.getframerate()) != (1, 2, 24000):
+            fail("server: a response is not mono 16-bit 24 kHz")
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def _serve(service):
+    """make_server on 127.0.0.1, an ephemeral port, in a thread; returns
+    (base url, stop)."""
+    import threading
+
+    from qwen3_tts_tpu_torch.server import make_server
+
+    srv = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        srv.shutdown()
+        srv.server_close()
+        service.stop(timeout=60)
+        thread.join(60)
+        if thread.is_alive() or service._thread.is_alive():
+            fail("server: the HTTP or the engine thread did not stop")
+
+    return f"http://127.0.0.1:{srv.server_address[1]}", stop
+
+
+def phase_server_reference(torch) -> None:
+    """A tiny float32 greedy model (int8 weights, grouped layout) behind
+    TTSService and make_server, on the card and on the CPU: a two-segment
+    /v1/synthesize must return the WAV of generate_audio on the same
+    device, and the card's must equal the CPU's within 2 LSB."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs, generate_audio
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+    from qwen3_tts_tpu_torch.server import TTSService
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    cfg = dataclasses.replace(configs.tiny(quant=True), dtype="float32")
+    pcm = {}
+    for dev in ("cpu", "cuda"):
+        model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu").to(dev)
+        model.sampling = SamplingConfig(greedy=True)
+        with tempfile.TemporaryDirectory() as out:
+            m = generate_audio(model=model, text=SERVER_TEXT, voice="ryan",
+                               output_path=out, max_frames=6)
+            with wave.open(os.path.join(out, "audio_000.wav"), "rb") as w:
+                direct = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        before = cuda_kernels.GROUPED_QMV.launches
+        service = TTSService(model, max_streams=8).start()
+        base, stop = _serve(service)
+        try:
+            resp = _http(base, "/v1/synthesize", {
+                "text": SERVER_TEXT, "voice": "ryan", "max_frames": 6})
+        finally:
+            stop()
+        if resp["status"] != 200:
+            fail(f"server reference {dev}: HTTP {resp['status']}")
+        pcm[dev] = _pcm(resp)
+        if dev == "cuda" and cuda_kernels.GROUPED_QMV.launches == before:
+            fail("server reference: kernel A never launched")
+        if m["segments"] != 2 or not np.array_equal(pcm[dev], direct):
+            fail(f"server reference {dev}: the daemon's WAV differs from "
+                 f"generate_audio's ({m['segments']} segments)")
+    a, b = pcm["cuda"].astype(np.int32), pcm["cpu"].astype(np.int32)
+    diff = int(np.abs(a - b).max()) if a.shape == b.shape else None
+    log({"phase": "server", "step": "reference", "dtype": "float32",
+         "segments": 2, "samples": int(b.size), "max_lsb_card_vs_cpu": diff,
+         "equal_to_generate_audio": True})
+    if diff is None or diff > 2 or not np.abs(b).max():
+        fail(f"server reference: the card's WAV differs from the CPU's "
+             f"(max {diff} LSB) or is silent")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
+    """The HTTP daemon at full width: phase_server_reference, then
+    flagship_feedback_code2wav behind TTSService(max_streams=8): eight
+    concurrent clients of 64 frames (four complete /v1/synthesize, three
+    streaming, one at speed 1.25, one OpenAI /v1/audio/speech), then a
+    streaming client that drops after its first chunk, whose slot must
+    free; /healthz, /v1/models and /metrics with the counters checked;
+    step ``batch`` (run_batch over 8 items through the same service) and
+    the quality step with ``asr``. Returns kernel launches and shapes of
+    the eight-client run."""
+    import threading
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch import batch
+    from qwen3_tts_tpu_torch.engine.api import _estimate_frames
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.server import TTSService
+
+    phase_server_reference(torch)
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    label = "flagship_feedback_code2wav"
+    model = _build(label)
+    cfg = model.cfg
+    hop, sr = cfg.codec.hop, cfg.codec.sample_rate
+    skip = cfg.code2wav.startup_samples
+    # the OpenAI surface takes no frame budget: a text whose estimate is 64
+    oa_text = next((SERVING_TEXTS[7][:n] for n in range(1, 60)
+                    if _estimate_frames(SERVING_TEXTS[7][:n],
+                                        cfg.codec.frame_rate) >= SERVING_FRAMES),
+                   SERVING_TEXTS[7])
+    oa_frames = _estimate_frames(oa_text, cfg.codec.frame_rate)
+    service = TTSService(model, max_streams=SERVING_STREAMS).start()
+    base, stop = _serve(service)
+    try:
+        warm = _http(base, "/v1/synthesize", {"text": SERVING_TEXTS[0],
+                                              "voice": "ryan", "max_frames": 8})
+        if warm["status"] != 200:
+            fail(f"server warm request: HTTP {warm['status']}")
+        voices = [cfg.speakers[i % len(cfg.speakers)]
+                  for i in range(SERVING_STREAMS)]
+        reqs = []
+        for i, (text, voice) in enumerate(zip(SERVING_TEXTS, voices)):
+            body = {"text": text, "voice": voice, "max_frames": SERVING_FRAMES}
+            if i < 4:
+                reqs.append(("complete", "/v1/synthesize", body, 1.0))
+            elif i < 7:
+                speed = 1.25 if i == 6 else 1.0
+                reqs.append(("stream", "/v1/synthesize",
+                             dict(body, stream=True, speed=speed), speed))
+            else:
+                reqs.append(("openai", "/v1/audio/speech",
+                             {"input": oa_text, "voice": voice}, 1.0))
+        stats_before = service.stats()
+        frames_before = service.frames_total
+        results: list = [None] * len(reqs)
+        gate = threading.Barrier(len(reqs) + 1)
+
+        def client(i):
+            gate.wait()
+            results[i] = _http(base, reqs[i][1], reqs[i][2])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        gate.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        frames = service.frames_total - frames_before
+        audio_s = 0.0
+        for (kind, path, body, speed), r in zip(reqs, results):
+            if r is None or r["status"] != 200:
+                fail(f"server {kind}: {r and (r['status'], r['body'][:300])}")
+            pcm = _pcm(r)
+            frames_asked = oa_frames if kind == "openai" else SERVING_FRAMES
+            budget = (frames_asked * hop - skip) / speed
+            # WSOLA's output is whole 30 ms frames
+            if not pcm.any() or len(pcm) > budget * 1.1 + 0.03 * sr:
+                fail(f"server {kind}: {len(pcm)} samples (budget {budget}) "
+                     "or silent")
+            audio_s += len(pcm) / sr
+        ttfa = sorted(r["first_byte_s"] for (kind, *_), r
+                      in zip(reqs, results) if kind == "stream")
+        # a streaming client that goes away after its first chunk: its job
+        # is cancelled (it never finishes, so frames_total does not move)
+        frames_before_drop = service.frames_total
+        drop = _http(base, "/v1/synthesize", {
+            "text": SERVING_TEXTS[1], "voice": "ryan", "max_frames": 400,
+            "stream": True}, read_first=2048)
+        dropped_at = time.perf_counter()
+        deadline = dropped_at + 60
+        while service.engine.free_slots() != SERVING_STREAMS:
+            if time.perf_counter() > deadline:
+                fail("server: the dropped stream's slot was not freed")
+            time.sleep(0.05)
+        freed_s = time.perf_counter() - dropped_at
+        if service.frames_total != frames_before_drop:
+            fail("server: the dropped stream ran to its end, not cancelled")
+        health = json.loads(_http(base, "/healthz")["body"])
+        models = json.loads(_http(base, "/v1/models")["body"])
+        metrics = {ln.split()[0]: float(ln.split()[1]) for ln in
+                   _http(base, "/metrics")["body"].decode().splitlines()
+                   if ln and not ln.startswith("#") and "{" not in ln}
+        sent = len(reqs) + 1
+        if (health["requests_total"] - stats_before["requests_total"] != sent
+                or health["errors_total"] != stats_before["errors_total"]
+                or metrics["qwen3_tts_requests_total"]
+                != health["requests_total"]
+                or metrics["qwen3_tts_errors_total"] != health["errors_total"]
+                or health["free_slots"] != SERVING_STREAMS
+                or models["sample_rate"] != sr):
+            fail(f"server counters: {health}, {metrics}")
+        log({"phase": "server", "step": "flagship", "model": label,
+             "layout": "grouped", "clients": [k for k, *_ in reqs],
+             "frames_budget": SERVING_FRAMES, "openai_chars": len(oa_text),
+             "openai_frames_budget": oa_frames,
+             "frames": frames, "audio_s": audio_s, "wall_s": wall,
+             "aggregate_rtf": audio_s / wall,
+             "serving_engine_run_aggregate_rtf": serving_rtf,
+             "ttfa_client_p50_s": statistics.median(ttfa),
+             "ttfa_client_max_s": ttfa[-1],
+             "ttfa_server_ms_complete": [r["headers"].get("X-TTFA-Ms")
+                                         for (k, *_), r in zip(reqs, results)
+                                         if k == "complete"],
+             "launches": counts,
+             "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / frames,
+             "peak_mem_gb": peak,
+             "dropped_stream_slot_freed_s": freed_s,
+             "requests_total": health["requests_total"],
+             "errors_total": health["errors_total"]})
+        if counts["grouped_qmv"] == 0:
+            fail("server: kernel A never launched")
+        items = [{"id": f"item{i}", "text": t, "voice": v,
+                  "max_seconds": 24 / cfg.codec.frame_rate}
+                 for i, (t, v) in enumerate(zip(SERVING_TEXTS, voices))]
+        with tempfile.TemporaryDirectory() as out:
+            summary = batch.run_batch(service, items, out)
+        log({"phase": "server", "step": "batch", **{
+            k: v for k, v in summary.items() if k != "manifest"}})
+        if summary["ok"] != len(items):
+            fail(f"server batch: {summary}")
+    finally:
+        stop()
+    phase_quality(torch, model, asr)
+    del model, service
+    torch.cuda.empty_cache()
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    return counts, shapes
 
 
 if __name__ == "__main__":

@@ -21,8 +21,11 @@ models (``synthetic:tiny|flagship`` with the rvq codec and
 in all three modes (custom, design and base, i.e. cloning from
 ``ref_audio``), and, through ``Qwen3TTSModel.synthetic``, any config of
 ``engine/configs.py`` at one frame per step, the published residual_sum
-protocol included; what waits for later slices raises
-``NotImplementedError`` naming its ROADMAP item.
+protocol included; what waits for later slices (MTP, frames_per_step > 1)
+raises ``NotImplementedError`` naming its ROADMAP item. ``speed != 1`` on a
+model without native speed is a host-side WSOLA stretch of the whole
+signal, and each call emits one ``profiling.emit_metrics`` line when
+QWEN3_TTS_METRICS is set.
 """
 
 from __future__ import annotations
@@ -370,11 +373,6 @@ def generate_audio(
     an ``on_chunk`` consumer, runs them one after another."""
     cfg = model.cfg
     sr = cfg.codec.sample_rate
-    if abs(speed - 1.0) >= 1e-3 and not cfg.native_speed:
-        raise NotImplementedError(
-            "speed != 1 needs the host-side time stretch (audio/stretch.py), "
-            "which waits for ROADMAP queue A, item 13"
-        )
     prompts, budgets = prepare_segments(
         model, text, voice=voice, instruct=instruct, speed=speed,
         ref_audio=ref_audio, ref_text=ref_text, max_frames=max_frames,
@@ -411,12 +409,20 @@ def generate_audio(
         [p for pair in zip(pieces, [gap] * len(pieces)) for p in pair][:-1]
     )
 
+    # speed contract: a checkpoint that does not honour the speed tag gets
+    # the host-side WSOLA stretch of the whole signal (audio/stretch.py)
+    if abs(speed - 1.0) >= 1e-3 and not cfg.native_speed and len(out):
+        from ..audio.stretch import time_stretch
+        from ..ops.pcm import pcm16_to_f32
+
+        out = time_stretch(pcm16_to_f32(out), float(speed), sr)
+
     from ..audio import write_wav
 
     os.makedirs(output_path, exist_ok=True)
     write_wav(os.path.join(output_path, file_name), out, sr)
     audio_s = len(out) / sr
-    return {
+    metrics = {
         "frames": total_frames,
         "audio_s": audio_s,
         "wall_s": wall,
@@ -425,3 +431,11 @@ def generate_audio(
         "segments": len(prompts),
         "sample_rate": sr,
     }
+    from ..profiling import emit_metrics
+
+    emit_metrics("generate_audio", {
+        "mode": cfg.mode, "chars": len(text),
+        **{k: round(v, 4) if isinstance(v, float) else v
+           for k, v in metrics.items()},
+    })
+    return metrics

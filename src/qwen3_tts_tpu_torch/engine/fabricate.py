@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
@@ -515,3 +516,198 @@ def write_published_snapshot(path: str, cfg, seed: int = 0,
         json.dump(hf, f)
     _write_prompts(path)
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+# --------------------------------------------------------------------------
+# Whisper snapshots (models/whisper.py, transcription.py, quality.py)
+# --------------------------------------------------------------------------
+
+# the 100 language tokens of the multilingual Whisper vocabularies, in
+# vocabulary order (ids from <|startoftranscript|> + 1)
+WHISPER_LANGUAGES = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms "
+    "cs ro da hu ta no th ur hr bg lt la mi ml cy sk te fa lv bn sr az sl kn "
+    "et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af oc ka be "
+    "tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln "
+    "ha ba jw su yue").split()
+WHISPER_TASKS = ("<|translate|>", "<|transcribe|>", "<|startoflm|>",
+                 "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>")
+
+
+def whisper_config_dict(d_model: int, layers: tuple[int, int], heads: int,
+                        ffn: int, n_mels: int, vocab_size: int,
+                        max_source_positions: int = 1500,
+                        max_target_positions: int = 448) -> dict:
+    """config.json of an HF Whisper checkpoint (the keys
+    ``WhisperConfig.from_hf`` and transformers read)."""
+    return {
+        "model_type": "whisper", "architectures": [
+            "WhisperForConditionalGeneration"],
+        "d_model": d_model,
+        "encoder_layers": layers[0], "decoder_layers": layers[1],
+        "encoder_attention_heads": heads, "decoder_attention_heads": heads,
+        "encoder_ffn_dim": ffn, "decoder_ffn_dim": ffn,
+        "num_mel_bins": n_mels, "vocab_size": vocab_size,
+        "max_source_positions": max_source_positions,
+        "max_target_positions": max_target_positions,
+        "bos_token_id": 50257, "eos_token_id": 50257, "pad_token_id": 50257,
+        "decoder_start_token_id": 50258, "activation_function": "gelu",
+        "scale_embedding": False, "tie_word_embeddings": True,
+    }
+
+
+# openai/whisper-large-v3-turbo's published widths
+WHISPER_LARGE_V3_TURBO = whisper_config_dict(
+    1280, (32, 4), 20, 5120, 128, 51_866)
+
+
+def _f16_draws(rng, shape, scale: float) -> np.ndarray:
+    """Seeded float16 values drawn as raw bits: a random sign and mantissa,
+    magnitudes in [2^e, 2^(e+1)) for e = floor(log2(scale)). Several times
+    faster than normal draws, which matters at 809 M parameters."""
+    n = int(np.prod(shape))
+    bits = np.frombuffer(rng.bytes(2 * n), np.uint16).copy()
+    bits &= np.uint16(0x83FF)                      # sign and mantissa
+    bits |= np.uint16((math.floor(math.log2(scale)) + 15) << 10)
+    return bits.view(np.float16).reshape(shape)
+
+
+def whisper_tensors(config: dict, seed: int = 0,
+                    dtype=np.float32) -> dict[str, np.ndarray]:
+    """Seeded random weights (``_f16_draws``) under the HF Whisper tensor
+    names (``model.encoder.*``, ``model.decoder.*``; the head is tied to
+    the token embedding), stored in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    D, F = config["d_model"], config["encoder_ffn_dim"]
+    out: dict[str, np.ndarray] = {}
+
+    def put(name, shape, std, mean=0.0):
+        a = _f16_draws(rng, shape, std)
+        if mean:
+            a = a.astype(np.float32) + np.float32(mean)
+        out[f"model.{name}"] = a.astype(dtype, copy=False)
+
+    def attn(p):
+        for proj in ("q", "k", "v", "out"):
+            put(f"{p}.{proj}_proj.weight", (D, D), 0.02)
+            if proj != "k":  # Whisper's key projections have no bias
+                put(f"{p}.{proj}_proj.bias", (D,), 0.02)
+
+    def norm(p):
+        put(f"{p}.weight", (D,), 0.05, mean=1.0)
+        put(f"{p}.bias", (D,), 0.02)
+
+    def block(p, cross: bool):
+        attn(f"{p}.self_attn")
+        norm(f"{p}.self_attn_layer_norm")
+        if cross:
+            attn(f"{p}.encoder_attn")
+            norm(f"{p}.encoder_attn_layer_norm")
+        put(f"{p}.fc1.weight", (F, D), 0.02)
+        put(f"{p}.fc1.bias", (F,), 0.02)
+        put(f"{p}.fc2.weight", (D, F), 0.02)
+        put(f"{p}.fc2.bias", (D,), 0.02)
+        norm(f"{p}.final_layer_norm")
+
+    put("encoder.conv1.weight", (D, config["num_mel_bins"], 3), 0.1)
+    put("encoder.conv1.bias", (D,), 0.02)
+    put("encoder.conv2.weight", (D, D, 3), 0.02)
+    put("encoder.conv2.bias", (D,), 0.02)
+    put("encoder.embed_positions.weight",
+        (config["max_source_positions"], D), 0.02)
+    for i in range(config["encoder_layers"]):
+        block(f"encoder.layers.{i}", cross=False)
+    norm("encoder.layer_norm")
+    put("decoder.embed_tokens.weight", (config["vocab_size"], D), 0.02)
+    put("decoder.embed_positions.weight",
+        (config["max_target_positions"], D), 0.02)
+    for i in range(config["decoder_layers"]):
+        block(f"decoder.layers.{i}", cross=True)
+    norm("decoder.layer_norm")
+    return out
+
+
+def _whisper_vocab(n_base: int, seed: int) -> tuple[dict, list]:
+    """A byte-level BPE vocabulary of ``n_base`` entries (the 256 byte
+    characters, then merges of earlier entries) and its merge list."""
+    from .tokenizer import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    tokens = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merges = []
+    while len(tokens) < n_base:  # pairs drawn in bulk from the entries so far
+        for a, b in rng.integers(0, len(tokens), (4096, 2)).tolist():
+            new = tokens[a] + tokens[b]
+            if len(new) > 12 or new in vocab:
+                continue
+            merges.append(f"{tokens[a]} {tokens[b]}")
+            vocab[new] = len(tokens)
+            tokens.append(new)
+            if len(tokens) == n_base:
+                break
+    return vocab, merges
+
+
+def write_whisper_tokenizer(path: str, vocab_size: int, seed: int = 0,
+                            eos_id: int = 50257) -> None:
+    """The tokenizer files of an HF Whisper snapshot over the whole
+    vocabulary: ``vocab.json`` (byte-level BPE entries below ``eos_id``),
+    ``merges.txt``, ``added_tokens.json`` (``<|endoftext|>``,
+    ``<|startoftranscript|>``, the language and task tokens, then
+    timestamps ``<|0.00|>``... up to ``vocab_size``),
+    ``special_tokens_map.json`` and ``tokenizer_config.json`` (the
+    timestamps are not special; spaces are cleaned up, as published)."""
+    vocab, merges = _whisper_vocab(eos_id, seed)
+    specials = (["<|endoftext|>", "<|startoftranscript|>"]
+                + [f"<|{lang}|>" for lang in WHISPER_LANGUAGES]
+                + list(WHISPER_TASKS))
+    n_stamps = vocab_size - eos_id - len(specials)
+    if n_stamps < 0:
+        raise ValueError(f"vocab_size {vocab_size} leaves no room for the "
+                         f"{len(specials)} special tokens after {eos_id}")
+    added = specials + [f"<|{0.02 * i:.2f}|>" for i in range(n_stamps)]
+    added_ids = {tok: eos_id + i for i, tok in enumerate(added)}
+    extra = specials[1:]
+    os.makedirs(path, exist_ok=True)
+    files = {
+        "vocab.json": vocab,
+        "added_tokens.json": added_ids,
+        "special_tokens_map.json": {
+            "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+            "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+            "additional_special_tokens": extra},
+        "tokenizer_config.json": {
+            "tokenizer_class": "WhisperTokenizer",
+            "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+            "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+            "additional_special_tokens": extra,
+            "clean_up_tokenization_spaces": True,
+            "model_max_length": 1024,
+            "added_tokens_decoder": {
+                str(i): {"content": tok, "special": tok in specials,
+                         "lstrip": False, "rstrip": False,
+                         "normalized": False, "single_word": False}
+                for tok, i in added_ids.items()}},
+    }
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as fh:
+            json.dump(obj, fh, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def write_whisper_snapshot(path: str, config: dict, seed: int = 0,
+                           dtype=np.float32) -> str:
+    """An HF Whisper snapshot: ``config.json``, ``model.safetensors``
+    (``whisper_tensors`` in ``dtype``, written by
+    ``engine/safetensors_io.py``) and the tokenizer files of
+    ``write_whisper_tokenizer``. Returns ``path``."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=1)
+    save_file(whisper_tensors(config, seed, dtype),
+              os.path.join(path, "model.safetensors"))
+    write_whisper_tokenizer(path, config["vocab_size"], seed,
+                            config["eos_token_id"])
+    return path

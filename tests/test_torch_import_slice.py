@@ -174,9 +174,10 @@ def test_port_imports_caches_and_synthesizes_without_jax_or_safetensors():
 
 
 def test_no_port_module_imports_the_missing_packages_at_top_level():
-    """The GPU machine has no safetensors, transformers or ml_dtypes: the
-    port and chip_smoke.py import them nowhere at module level (the HF
-    tokenizer imports transformers inside its constructor)."""
+    """The GPU machine has no safetensors, transformers, ml_dtypes, rich or
+    prompt_toolkit: the port and chip_smoke.py import them nowhere at
+    module level (the HF tokenizer imports transformers inside its
+    constructor, offer_transcribe the terminal UI inside its body)."""
     files = sorted((ROOT / "src" / "qwen3_tts_tpu_torch").rglob("*.py"))
     for path in files + [ROOT / "chip_smoke.py"]:
         for node in ast.parse(path.read_text()).body:
@@ -185,4 +186,5 @@ def test_no_port_module_imports_the_missing_packages_at_top_level():
                      else [])
             for name in names:
                 assert name.split(".")[0] not in (
-                    "safetensors", "transformers", "ml_dtypes", "jax"), (path, name)
+                    "safetensors", "transformers", "ml_dtypes", "jax", "rich",
+                    "prompt_toolkit"), (path, name)

@@ -166,9 +166,7 @@ def _with_fps(cfg, fps: int):
     # the published protocol runs at one frame a step; MTP still waits
     (lambda m, d: tapi.Qwen3TTSModel.synthetic(
         _with_fps(tcfgs.tiny_feedback(), 2), device="cpu"), "9"),
-    (lambda m, d: tapi.generate_audio(model=m, text="x", voice="ryan",
-                                      output_path=d, speed=1.3), "13"),
-], ids=["residual_sum_mtp", "speed"])
+], ids=["residual_sum_mtp"])
 def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
     model = tapi.load_model("synthetic:tiny", device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -202,15 +200,20 @@ def _snapshot_base(d: str):
      {"ref_audio": True, "voice": "ryan"}),
     (lambda d: tapi.load_model("synthetic:tiny", device="cpu"),
      {"voice": "ryan", "env": {"QWEN3_TTS_KV": "int8"}}),
-], ids=["base_mode", "code2wav", "checkpoint_dir", "ref_audio", "kv_int8"])
+    (lambda d: tapi.load_model("synthetic:tiny", device="cpu"),
+     {"voice": "ryan", "speed": 1.3}),
+], ids=["base_mode", "code2wav", "checkpoint_dir", "ref_audio", "kv_int8",
+        "speed"])
 def test_features_that_raised_now_run_and_write_their_wav(build, kw, temp_dir):
-    """What raised for ROADMAP items 11 and 12 runs now: the base (cloning)
-    mode of synthetic names and of a checkpoint directory, ref_audio in any
-    mode, and the int8 KV cache, each writing frames x hop samples (less the
-    code2wav decoder's run-in)."""
+    """What raised for ROADMAP items 11, 12 and 13 runs now: the base
+    (cloning) mode of synthetic names and of a checkpoint directory,
+    ref_audio in any mode, and the int8 KV cache, each writing frames x hop
+    samples (less the code2wav decoder's run-in); speed != 1, the whole
+    signal time-stretched on the host to frames x hop / speed samples."""
     model = build(temp_dir)
+    speed = kw.get("speed", 1.0)
     args = dict(model=model, text=TEXT, output_path=temp_dir, max_frames=8,
-                voice=kw.get("voice"))
+                voice=kw.get("voice"), speed=speed)
     if kw.get("ref_audio"):
         args.update(ref_audio=_reference_wav(temp_dir),
                     ref_text="A reference transcript.")
@@ -218,8 +221,14 @@ def test_features_that_raised_now_run_and_write_their_wav(build, kw, temp_dir):
     cfg = model.cfg
     skip = cfg.code2wav.startup_samples if cfg.codec_arch == "code2wav" else 0
     with wave.open(os.path.join(temp_dir, "audio_000.wav"), "rb") as w:
-        assert w.getnframes() == m["frames"] * cfg.codec.hop - skip
-        pcm = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+        n = w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    unstretched = m["frames"] * cfg.codec.hop - skip
+    if speed == 1.0:
+        assert n == unstretched
+    else:
+        assert abs(n - unstretched / speed) < 0.1 * unstretched
+        assert n == round(m["audio_s"] * cfg.codec.sample_rate)
     assert m["frames"] > 0 and pcm.any()
 
 

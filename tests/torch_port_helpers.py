@@ -3,6 +3,8 @@ package (tests/test_torch_*.py)."""
 
 import dataclasses
 
+import pytest
+
 # The initialiser's conv gain grows the tiny codec's activations to ~1e2
 # before the final tanh: the waveform clips, and float32 summation order
 # alone then moves unclipped samples by ~1e-4 (3 LSB at int16). Scaling the
@@ -74,3 +76,17 @@ def assert_trees_equal(got, want) -> None:
     assert sorted(g) == sorted(w), (sorted(set(g) ^ set(w)))[:10]
     bad = [(k, g[k][:2], w[k][:2]) for k in w if g[k] != w[k]]
     assert not bad, f"{len(bad)} leaves differ, e.g. {bad[:5]}"
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module, restored after. The suite
+    runs several workers on the CPU: torch's default thread per core then
+    spins against the other workers, and a module of many small ops (a
+    Whisper window is 224 decode steps) runs many times slower."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
