@@ -49,7 +49,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    widths), reloaded from its _tpu_native cache (every leaf bit-equal to
    the first load's), and driven as one more main path, grouped layout;
    phase 3 also imports a tiny published-layout snapshot on the card and
-   on the CPU, whose float32 greedy codes must be equal;
+   on the CPU, whose float32 greedy codes must be equal. The snapshot
+   ships a fabricated Qwen2-style text tokenizer (tokenizer.json and the
+   vocab.json + merges.txt layout): the model must load the port's own
+   BPE encoder (QwenBPETokenizer) without a warning, its vocabulary must
+   hold >= 512 ids, validate_special_tokens must pass on a ChatML render,
+   whose ids must not be its UTF-8 bytes, and the ids of every text of
+   tests/qwen_bpe_golden.json (transformers' ids on the same files) must
+   equal the golden ones;
 8. serving (runtime/serving.py::ServingEngine): tiny float32 models with
    int8 weights under the grouped layout (cb0 + rvq, residual_sum +
    code2wav), four streams of different budgets, one joining mid-flight:
@@ -105,12 +112,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    A launches a frame, peak memory; a streaming client dropped after its
    first chunk, whose slot must free; /healthz, /v1/models and /metrics
    with the request and error counters checked; step ``batch``: run_batch
-   over eight items through the same service.
+   over eight items through the same service;
+14. phase ``mtp`` (multi-token prediction, batched-cp MTP and speculative
+   depth decode): tiny float32 models with int8 weights, grouped layout,
+   on the card and on the CPU -- fps 2 and 3 under the cb0 protocol
+   (rvq), fps 2 under residual_sum with mtp_cp_batch off and on,
+   depth_group 5 with spec_decode at fps 1 (16 codebooks), and a
+   ServingEngine of three streams at fps 2 -- whose greedy codes must be
+   equal and PCM within 2 LSB; then flagship_feedback_code2wav at two
+   frames a step drawn on the card (its MTP heads int8, so they run on
+   kernel A), 64 frames through generate_audio with mtp_cp_batch off and
+   on: RTF, TTFA, peak memory and kernel A launches a frame beside the
+   fps=1 main path's from phase 6.
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
 
-Output: one line per shape and phase, then a ``{"kernels": [...]}`` line,
+Output: one line per shape and phase (each with ``t_s``, the script's
+seconds so far), then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -127,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import wave
 from pathlib import Path
 
@@ -171,7 +191,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+START = time.perf_counter()
+
+
 def log(obj) -> None:
+    """One output line; a dict gets ``t_s``, the script's seconds so far
+    (where the 400 s budget goes)."""
+    if isinstance(obj, dict):
+        obj = {**obj, "t_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -394,18 +421,19 @@ def main() -> None:
     phase_frame_sum(checked)
     checked_f32: dict = {}
     phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
-    launches, shapes, rtfs = phase_main_paths(torch)
+    launches, shapes, runs = phase_main_paths(torch)
+    mtp_counts, mtp_ran = phase_mtp(torch, runs["flagship_feedback_code2wav"])
     counts, ran, serving_rtf = phase_serving(
-        torch, rtfs["flagship_feedback_code2wav"])
+        torch, runs["flagship_feedback_code2wav"]["rtf"])
     asr, asr_snapshot = phase_asr(torch)
     server_counts, server_ran = phase_server(torch, serving_rtf, asr)
     del asr
     asr_snapshot.cleanup()
-    for run_shapes in (ran, server_ran):
+    for run_shapes in (mtp_ran, ran, server_ran):
         for name, run in run_shapes.items():
             shapes.setdefault(name, set()).update(run)
-    launches = {name: launches[name] + counts[name] + server_counts[name]
-                for name in launches}
+    launches = {name: launches[name] + mtp_counts[name] + counts[name]
+                + server_counts[name] for name in launches}
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -787,11 +815,11 @@ def _build(label: str):
 
 
 def phase_main_path(torch, label: str, layout: str, kernel: str,
-                    frames: int, model=None) -> tuple[dict, dict, float]:
+                    frames: int, model=None) -> tuple[dict, dict, dict]:
     """The model ``label`` (or ``model``, already loaded) at full width ->
     generate_audio under one int8 layout; returns every kernel's launches in
     the measured run, the (M, N, K, gs) shapes each ran there, and its
-    RTF."""
+    numbers (RTF, TTFA, peak memory, kernel A launches a frame)."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import generate_audio
@@ -836,13 +864,20 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
         fail(f"{where}: the waveform is silent or not finite")
     if counts[kernel] == 0:
         fail(f"{where}: kernel {kernel} never launched on the main path")
+    summary = {"frames_per_step": cfg.talker.frames_per_step,
+               "mtp_cp_batch": cfg.talker.mtp_cp_batch,
+               "frames": m["frames"], "rtf": m["rtf"], "ttfa_s": m["ttfa_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "grouped_qmv_launches_per_frame":
+                   counts["grouped_qmv"] / m["frames"]}
     log({"phase": "main_path", "layout": layout, "model": label,
          "protocol": cfg.talker.feedback, "codec": cfg.codec_arch,
+         "frames_per_step": cfg.talker.frames_per_step,
          "frames": m["frames"], "audio_s": m["audio_s"], "wall_s": m["wall_s"],
          "rtf": m["rtf"], "ttfa_s": m["ttfa_s"], "load_s": load_s,
          "warmup_wall_s": warm["wall_s"], "samples": n,
          "startup_samples_dropped": skip,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "peak_mem_gb": summary["peak_mem_gb"],
          "launches": counts,
          "launches_per_frame": {name: c / m["frames"]
                                 for name, c in counts.items()},
@@ -850,7 +885,7 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
     del model
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
-    return counts, shapes, m["rtf"]
+    return counts, shapes, summary
 
 
 def phase_profile(torch, label: str) -> None:
@@ -941,8 +976,11 @@ def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
         log({"phase": "import", "step": "fabricate", "bytes": nbytes,
              "fabricate_s": time.perf_counter() - t0})
 
-        model = load_model(snap, device="cuda")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model = load_model(snap, device="cuda")
         torch.cuda.synchronize()
+        phase_import_tokenizer(model, caught)
         rep = model.import_report
         cfg = model.cfg
         log({"phase": "import", "step": "first_load", **model.load_times,
@@ -990,13 +1028,57 @@ def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
             fail("import: the native cache's model differs from the import's")
         del again
         torch.cuda.empty_cache()
-        counts, shapes, rtf = phase_main_path(
+        counts, shapes, run = phase_main_path(
             torch, "import:flagship_feedback_code2wav", "grouped",
             "grouped_qmv", MAIN_FRAMES, model=model)
         del model
-        for name, run in phase_clone(torch, snap, feedback_rtf).items():
-            shapes.setdefault(name, set()).update(run)
-        return counts, shapes, rtf
+        for name, ran in phase_clone(torch, snap, feedback_rtf).items():
+            shapes.setdefault(name, set()).update(ran)
+        return counts, shapes, run["rtf"]
+
+
+GOLDEN_IDS = ROOT / "tests" / "qwen_bpe_golden.json"
+
+
+def phase_import_tokenizer(model, caught) -> None:
+    """The imported snapshot's text tokenizer: the port's BPE encoder,
+    loaded without a warning, >= 512 ids, a ChatML render that passes
+    validate_special_tokens and is not encoded as its bytes, and the
+    golden ids (transformers' on the same fabricated files) on every
+    golden text."""
+    from qwen3_tts_tpu_torch.engine.fabricate import QWEN_CHATML
+    from qwen3_tts_tpu_torch.runtime.prompts import (
+        PromptTemplate, build_prompt, validate_special_tokens,
+    )
+
+    tok = model.tokenizer
+    warned = [str(w.message) for w in caught
+              if "tokenizer" in str(w.message).lower()]
+    if type(tok).__name__ != "QwenBPETokenizer" or warned:
+        fail(f"import tokenizer: {type(tok).__name__}, warnings {warned}")
+    chat = PromptTemplate(chat_template=QWEN_CHATML, source="chat_template")
+    t0 = time.perf_counter()
+    prompt = build_prompt(tok, "custom", TEXT, voice="ryan",
+                          speakers=model.cfg.speakers, instruct="Speak warmly.",
+                          template=chat)
+    validate_special_tokens(prompt.rendered, tok)
+    with open(GOLDEN_IDS, encoding="utf-8") as fh:
+        golden = json.load(fh)
+    wrong = [case for case, g in golden["cases"].items()
+             if tok.encode(g["text"]) != g["ids"]]
+    encode_s = time.perf_counter() - t0
+    ids = prompt.text_tokens.tolist()
+    as_bytes = ids == list(prompt.rendered.encode("utf-8"))
+    log({"phase": "import", "step": "tokenizer", "class": type(tok).__name__,
+         "vocab_size": tok.vocab_size, "golden_cases": len(golden["cases"]),
+         "golden_wrong": wrong, "prompt_ids": len(ids),
+         "prompt_utf8_bytes": len(prompt.rendered.encode("utf-8")),
+         "ids_are_bytes": as_bytes, "encode_s": encode_s})
+    if tok.vocab_size < 512 or tok.vocab_size != golden["vocab_size"] \
+            or wrong or as_bytes or max(ids) >= model.cfg.talker.vocab_size:
+        fail(f"import tokenizer: vocab {tok.vocab_size} (golden "
+             f"{golden['vocab_size']}), golden cases wrong {wrong}, ids are "
+             f"the prompt's bytes: {as_bytes}")
 
 
 CLONE_REF_S = 5.0
@@ -1087,22 +1169,177 @@ def phase_main_paths(torch) -> tuple[dict, dict, dict]:
     """The reference phase, then every main path and the imported
     checkpoint's; returns each kernel's launches on the flagship's main
     path under its layout (the first path that runs it), the shapes each
-    kernel ran on any path, and each path's RTF."""
+    kernel ran on any path, and each path's numbers (phase_main_path)."""
     phase_reference(torch)
     launches: dict = {}
     shapes: dict = {}
-    rtfs: dict = {}
+    runs: dict = {}
     for label, layout, kernel, frames in MAIN_PATHS:
-        counts, ran, rtfs[label] = phase_main_path(torch, label, layout,
+        counts, ran, runs[label] = phase_main_path(torch, label, layout,
                                                    kernel, frames)
         launches.setdefault(kernel, counts[kernel])
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
     # the imported checkpoint's path: its shapes join the coverage check
-    _, ran, _ = phase_import(torch, rtfs["flagship_feedback_code2wav"])
+    _, ran, _ = phase_import(torch, runs["flagship_feedback_code2wav"]["rtf"])
     for name, run in ran.items():
         shapes.setdefault(name, set()).update(run)
-    return launches, shapes, rtfs
+    return launches, shapes, runs
+
+
+# phase mtp: the tiny reference configs, from the port's configs module
+MTP_BUDGETS = (13, 9, 11)  # frames of the reference prompts / streams
+
+
+def _mtp_reference_configs(configs) -> dict:
+    import dataclasses
+
+    def f32_int8(cfg):
+        return dataclasses.replace(configs.with_quant(cfg, True),
+                                   dtype="float32")
+
+    spec = configs.tiny_feedback()
+    spec = dataclasses.replace(
+        spec, codec=dataclasses.replace(spec.codec, num_codebooks=16),
+        code_predictor=dataclasses.replace(spec.code_predictor, depth_group=5,
+                                           spec_decode=True))
+    return {
+        "cb0_rvq_fps2": f32_int8(configs.with_frames_per_step(configs.tiny(), 2)),
+        "cb0_rvq_fps3": f32_int8(configs.with_frames_per_step(configs.tiny(), 3)),
+        "residual_sum_fps2": f32_int8(configs.tiny_feedback(frames_per_step=2)),
+        "residual_sum_fps2_cpb": f32_int8(configs.tiny_feedback(
+            frames_per_step=2, mtp_cp_batch=True)),
+        "residual_sum_dg5_spec": f32_int8(spec),
+    }
+
+
+def tame_rvq_codec(model) -> None:
+    """Scale the tiny rvq decoder's conv weights by 0.6, in place (as the
+    port's CPU tests do, tests/torch_port_helpers.py): its initialiser's
+    gain drives activations to ~1e2 before the final tanh, where float32
+    summation order alone moves the clipped waveform by 3 LSB; at 0.6 the
+    waveform is unclipped and the 2 LSB bound tests the arithmetic."""
+    if model.cfg.codec_arch != "rvq":
+        return
+    dec = model.codec_params["dec"]
+    convs = [dec["in_proj"], dec["out_conv"]] + [
+        c for st in dec["stages"] for c in (st["up"], st["res"]["c1"],
+                                            st["res"]["c2"])]
+    for conv in convs:
+        conv["w"].mul_(0.6)
+
+
+def phase_mtp_reference(torch) -> None:
+    """Tiny float32 models with int8 weights, grouped layout, on the card
+    and on the CPU: each MTP / spec config's greedy single-stream codes
+    must be equal for three prompts and PCM within 2 LSB; then a
+    ServingEngine of three streams at fps 2 (cb0 and residual_sum),
+    likewise. The rvq decoder is tamed (tame_rvq_codec) on both sides."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+    from qwen3_tts_tpu_torch.runtime.serving import ServingEngine
+
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    greedy = SamplingConfig(greedy=True)
+    cases = [(label, cfg, False) for label, cfg in
+             _mtp_reference_configs(configs).items()]
+    cases += [(label + "_serving3", cfg, True) for label, cfg, _ in cases
+              if label in ("cb0_rvq_fps2", "residual_sum_fps2")]
+    for label, cfg, serve in cases:
+        host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+        prompts = [prepare_segments(host, text, voice=voice)[0][0]
+                   for text, voice in zip(SERVING_TEXTS[:3], cfg.speakers)]
+        out = {}
+        before = cuda_kernels.GROUPED_QMV.launches
+        for dev in ("cpu", "cuda"):
+            model = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+            tame_rvq_codec(model)
+            model = model.to(dev)
+            model.sampling = greedy
+            if serve:
+                engine = ServingEngine(model, max_streams=4, sampling=greedy)
+                out[dev] = [(np.concatenate(st.codes, 1), wav) for wav, st in
+                            engine.run(prompts, max_frames=list(MTP_BUDGETS))]
+            else:
+                out[dev] = []
+                for p, b in zip(prompts, MTP_BUDGETS):
+                    r = model.generator.synthesize(p, max_frames=b,
+                                                   collect_codes=True)
+                    out[dev].append((r.codes, r.wav))
+        if cuda_kernels.GROUPED_QMV.launches == before:
+            fail(f"mtp reference {label}: kernel A never launched")
+        codes_equal = all(a.shape == b.shape and np.array_equal(a, b)
+                          for (a, _), (b, _) in zip(out["cuda"], out["cpu"]))
+        pcm_err = max(
+            (int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+             if a.shape == b.shape and a.size else 1 << 16)
+            for (_, a), (_, b) in zip(out["cuda"], out["cpu"]))
+        log({"phase": "mtp", "step": "reference", "model": label,
+             "dtype": "float32", "layout": "grouped",
+             "frames_per_step": cfg.talker.frames_per_step,
+             "mtp_cp_batch": cfg.talker.mtp_cp_batch,
+             "depth_group": cfg.code_predictor.depth_group,
+             "spec_decode": cfg.code_predictor.spec_decode,
+             "serving_streams": 3 if serve else None,
+             "frames": [int(c.shape[1]) for c, _ in out["cpu"]],
+             "greedy_codes_equal": codes_equal, "pcm_max_lsb": pcm_err,
+             "frames_equal_before_first_difference":
+                 [_lead(a, b) for (a, _), (b, _) in zip(out["cuda"],
+                                                        out["cpu"])]})
+        if not codes_equal or pcm_err > 2:
+            fail(f"mtp reference {label}, float32: the card's greedy codes "
+                 f"differ from the CPU's ({codes_equal}) or PCM by "
+                 f"{pcm_err} > 2 LSB")
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+
+
+def phase_mtp(torch, fps1: dict) -> tuple[dict, dict]:
+    """phase_mtp_reference, then flagship_feedback_code2wav at two frames
+    a step, drawn on the card (int8 MTP heads), as a main path of
+    MAIN_FRAMES frames with mtp_cp_batch off and then on (a view of the
+    same weights); prints each run's RTF, TTFA, peak memory and kernel A
+    launches a frame beside ``fps1``, the fps=1 main path's. Returns each
+    kernel's launches over both measured runs and the shapes they ran."""
+    from qwen3_tts_tpu_torch import quality
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+
+    phase_mtp_reference(torch)
+    label = "flagship_feedback_code2wav"
+    t0 = time.perf_counter()
+    model = Qwen3TTSModel.synthetic(
+        configs.flagship_feedback_code2wav(frames_per_step=2), seed=0,
+        device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    merge = model.params["mtp"]["merge"]
+    if set(merge) != {"q", "scale", "bias"}:
+        fail(f"mtp: the synthetic MTP heads are not int8 ({sorted(merge)})")
+    counts: dict = {}
+    shapes: dict = {}
+    runs = {}
+    for cpb in (False, True):
+        view = quality.variant_model(model, {"cpb": cpb})
+        ran_counts, ran, runs[cpb] = phase_main_path(
+            torch, f"{label}@fps=2+cpb={int(cpb)}", "grouped", "grouped_qmv",
+            MAIN_FRAMES, model=view)
+        del view
+        for name, run in ran.items():
+            shapes.setdefault(name, set()).update(run)
+            counts[name] = counts.get(name, 0) + ran_counts[name]
+    keys = ("rtf", "ttfa_s", "peak_mem_gb", "grouped_qmv_launches_per_frame")
+    log({"phase": "mtp", "step": "flagship", "model": label,
+         "layout": "grouped", "frames": MAIN_FRAMES, "draw_s": draw_s,
+         "fps2": {k: runs[False][k] for k in keys},
+         "fps2_cpb": {k: runs[True][k] for k in keys},
+         "fps1": {k: fps1[k] for k in keys}})
+    del model
+    torch.cuda.empty_cache()
+    return counts, shapes
 
 
 SERVING_TEXTS = (

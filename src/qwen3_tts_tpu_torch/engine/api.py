@@ -20,9 +20,9 @@ models (``synthetic:tiny|flagship`` with the rvq codec and
 ``synthetic:tiny-code2wav|flagship-code2wav`` with the code2wav decoder)
 in all three modes (custom, design and base, i.e. cloning from
 ``ref_audio``), and, through ``Qwen3TTSModel.synthetic``, any config of
-``engine/configs.py`` at one frame per step, the published residual_sum
-protocol included; what waits for later slices (MTP, frames_per_step > 1)
-raises ``NotImplementedError`` naming its ROADMAP item. ``speed != 1`` on a
+``engine/configs.py``: the published residual_sum protocol, multi-token
+prediction (``frames_per_step`` > 1, on a talker tree with MTP heads),
+the batched-cp MTP chain and speculative depth decode. ``speed != 1`` on a
 model without native speed is a host-side WSOLA stretch of the whole
 signal, and each call emits one ``profiling.emit_metrics`` line when
 QWEN3_TTS_METRICS is set.

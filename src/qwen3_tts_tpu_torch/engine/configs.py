@@ -402,6 +402,10 @@ def flagship(mode: str = "custom", *, frames_per_step: int = 1) -> ModelConfig:
     return cfg
 
 
+def with_frames_per_step(cfg: ModelConfig, n: int) -> ModelConfig:
+    return replace(cfg, talker=replace(cfg.talker, frames_per_step=n))
+
+
 def with_code2wav(cfg: ModelConfig, c2w: Code2WavConfig) -> ModelConfig:
     """Switch ``cfg`` to the code2wav decoder (models/code2wav.py).
 
@@ -464,40 +468,48 @@ def tiny_code2wav(mode: str = "custom") -> ModelConfig:
     ))
 
 
-def _published_protocol(base: ModelConfig, talker_ids: dict,
+def _published_protocol(base: ModelConfig, talker_ids: dict, *,
+                        frames_per_step: int = 1, depth_group: int = 1,
+                        spec_decode: bool = False, mtp_cp_batch: bool = False,
                         **cp_changes) -> ModelConfig:
     """``base`` under the published decode protocol: residual-sum feedback
     with trailing text, and the two-position (hidden_token) code predictor
-    at talker width with no input projection and no qk-norm."""
+    at talker width with no input projection and no qk-norm; with the
+    decode extensions asked for (MTP frames per step, the batched-cp MTP
+    chain, grouped and speculative depth decode)."""
     return replace(
         base,
-        talker=replace(base.talker, feedback="residual_sum", **talker_ids),
+        talker=replace(base.talker, feedback="residual_sum",
+                       frames_per_step=frames_per_step,
+                       mtp_cp_batch=mtp_cp_batch, **talker_ids),
         code_predictor=replace(
             base.code_predictor, hidden=base.talker.hidden,
             input_layout="hidden_token", input_proj=False, qk_norm=False,
-            **cp_changes),
+            depth_group=depth_group, spec_decode=spec_decode, **cp_changes),
     )
 
 
-def flagship_feedback(mode: str = "custom") -> ModelConfig:
+def flagship_feedback(mode: str = "custom", **ext) -> ModelConfig:
     """The flagship under the published decode protocol: the cost model of
     a real imported checkpoint (the code predictor runs per frame inside
     the talker loop, at talker width, sampling with the published top_k=50,
     top_p=0.8). Synthetic ids stand in for the checkpoint's tts and think
-    markers. Frames per step > 1 waits for ROADMAP queue A, item 9."""
+    markers. ``ext``: ``frames_per_step``, ``depth_group``,
+    ``spec_decode``, ``mtp_cp_batch`` (``_published_protocol``), the
+    protocol after the MTP / depth-group fine-tune."""
     return _published_protocol(
         flagship(mode),
         dict(tts_pad_id=151_000, tts_bos_id=151_001, tts_eos_id=151_002,
              codec_nothink=2_045, codec_think_bos=2_046,
              codec_think_eos=2_047),
-        top_k=50, top_p=0.8)
+        top_k=50, top_p=0.8, **ext)
 
 
-def flagship_feedback_code2wav(mode: str = "custom") -> ModelConfig:
+def flagship_feedback_code2wav(mode: str = "custom", **ext) -> ModelConfig:
     """The real-checkpoint cost model: the published decode protocol
-    (flagship_feedback) driving the code2wav decoder at 12 Hz geometry
-    (flagship_code2wav)."""
-    base = flagship_feedback(mode)
+    (flagship_feedback, with its ``ext``) driving the code2wav decoder at
+    12 Hz geometry (flagship_code2wav)."""
+    base = flagship_feedback(mode, **ext)
     return with_code2wav(base, Code2WavConfig(
         codebook_size=base.codec.codebook_size,
         num_quantizers=base.codec.num_codebooks,
@@ -507,14 +519,15 @@ def flagship_feedback_code2wav(mode: str = "custom") -> ModelConfig:
     ))
 
 
-def tiny_feedback(mode: str = "custom") -> ModelConfig:
+def tiny_feedback(mode: str = "custom", **ext) -> ModelConfig:
     """The tiny config under the published decode protocol (residual-sum
-    feedback, trailing text, the hidden_token code-predictor layout)."""
+    feedback, trailing text, the hidden_token code-predictor layout);
+    ``ext`` as flagship_feedback's."""
     return _published_protocol(
         tiny(mode),
         dict(tts_pad_id=250, tts_bos_id=251, tts_eos_id=252,
              codec_nothink=60, codec_think_bos=61, codec_think_eos=62,
-             trailing_bucket=64))
+             trailing_bucket=64), **ext)
 
 
 def torch_dtype(cfg: ModelConfig):

@@ -15,7 +15,10 @@ numpy and ``engine/safetensors_io.py`` alone.
   ids, a speaker-name map, ``code2wav.*`` under transformers'
   Qwen3OmniMoeCode2Wav module paths with its ``code2wav_config``, and
   ``tts_prompts.json``; optionally a Mimi speech tokenizer
-  (``speech_tokenizer_tensors``) for cloning.
+  (``speech_tokenizer_tensors``) for cloning; and, where the talker's text
+  vocabulary holds it, a small Qwen2-style text tokenizer
+  (``write_qwen_tokenizer``);
+- ``write_whisper_snapshot``: an HF Whisper snapshot and its vocabulary.
 """
 
 from __future__ import annotations
@@ -263,6 +266,143 @@ def write_mlx_style_checkpoint(path: str, cfg, seed: int = 11,
     return tensors, dense
 
 
+# the ChatML template at the core of the Qwen2.5/Qwen3 tokenizer_config.json
+QWEN_CHATML = (
+    "{%- for message in messages %}"
+    "{{- '<|im_start|>' + message['role'] + '\\n' + message['content']"
+    " + '<|im_end|>' + '\\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}"
+    "{{- '<|im_start|>assistant\\n' }}"
+    "{%- endif %}"
+)
+# the added tokens of the fabricated Qwen tokenizer: the ChatML markers and
+# the control markers of the tts_prompts.json templates (_write_prompts)
+QWEN_SPECIAL_TOKENS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                       "<|instruct|>", "<|/instruct|>", "<|voice|>",
+                       "<|/voice|>", "<|ref|>", "<|/ref|>")
+# the fixed text the fabricated merges are learnt from
+QWEN_CORPUS = (
+    "Hello there, general. The quick brown fox jumps over the lazy dog. "
+    "Speak happily, and read this in a deep, calm narrator voice. "
+    "Multi token prediction speaks two frames at every step of the talker. "
+    "This is a test of the text to speech system; it reads every sentence "
+    "aloud. We'll see: don't stop, it's fine, they're here, I've been, "
+    "I'm sure, she'd say. Numbers like 42, 2026 and 3.14 read digit by "
+    "digit. Café, naïve, über, señor, déjà vu.\n"
+    "你好，世界。今天天气很好，我们一起说话吧。语音合成的声音很自然。"
+    "这是一个测试，请读出这句话。\n"
+    "こんにちは、世界。今日はいい天気ですね。音声合成のテストです。\n"
+    "안녕하세요, 세계. 오늘 날씨가 좋네요.\n"
+    "Hello world! Hello again, world. The voice says hello to the world, "
+    "and the world says hello back. Speak, speak, speak the words.\r\n"
+    "\tTabs and    runs of spaces stay as they are.  🙂 👍\n"
+)
+
+
+QWEN_MERGES = 320  # merges of the fabricated Qwen tokenizer
+
+
+def _qwen_vocab() -> tuple[dict, list]:
+    """A byte-level BPE vocabulary: the 256 byte characters, then
+    QWEN_MERGES merges learnt from QWEN_CORPUS (pre-tokenized with the
+    Qwen2 pattern; the most frequent pair first, ties by the pair's
+    characters), and its merge list [(a, b), ...]."""
+    import unicodedata
+    from collections import Counter
+
+    from .tokenizer import bytes_to_unicode, qwen2_pretokenizer
+
+    char_of = bytes_to_unicode()
+    words = Counter(
+        "".join(char_of[b] for b in m.group().encode("utf-8"))
+        for m in qwen2_pretokenizer().finditer(
+            unicodedata.normalize("NFC", QWEN_CORPUS)))
+    seqs = {w: list(w) for w in words}
+    vocab = {c: i for i, c in enumerate(char_of.values())}
+    merges = []
+    while len(merges) < QWEN_MERGES:
+        counts = Counter()
+        for w, n in words.items():
+            for pair in zip(seqs[w], seqs[w][1:]):
+                counts[pair] += n
+        if not counts:
+            raise ValueError(f"QWEN_CORPUS yields {len(merges)} merges, "
+                             f"not {QWEN_MERGES}")
+        a, b = min(counts, key=lambda p: (-counts[p], p))
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        for w, seq in seqs.items():
+            out, i = [], 0
+            while i < len(seq):
+                if i + 1 < len(seq) and seq[i] == a and seq[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[w] = out
+    return vocab, merges
+
+
+def write_qwen_tokenizer(path: str) -> int:
+    """The text tokenizer files of a Qwen2-style checkpoint, written with
+    json alone: ``tokenizer.json`` (BPE over ``_qwen_vocab``, the NFC
+    normalizer, the Qwen2 Split pre-tokenizer and ByteLevel, the
+    QWEN_SPECIAL_TOKENS as added tokens after the vocabulary), the same
+    vocabulary as ``vocab.json`` + ``merges.txt``, and
+    ``tokenizer_config.json`` (``added_tokens_decoder``, the ChatML chat
+    template, ``tokenizer_class`` Qwen2Tokenizer). Deterministic: the same
+    files on every call. Returns the vocabulary size with the added
+    tokens (``len(AutoTokenizer)``)."""
+    from .tokenizer import QWEN2_PATTERN
+
+    vocab, merges = _qwen_vocab()
+    flags = dict(single_word=False, lstrip=False, rstrip=False,
+                 normalized=False, special=True)
+    added = [{"id": len(vocab) + i, "content": tok, **flags}
+             for i, tok in enumerate(QWEN_SPECIAL_TOKENS)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": False}
+    files = {
+        "tokenizer.json": {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added,
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN},
+                 "behavior": "Isolated", "invert": False},
+                byte_level]},
+            "post_processor": byte_level,
+            "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "",
+                      "end_of_word_suffix": "", "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": [list(m) for m in merges]}},
+        "vocab.json": vocab,
+        "tokenizer_config.json": {
+            "tokenizer_class": "Qwen2Tokenizer",
+            "added_tokens_decoder": {
+                str(t["id"]): {k: v for k, v in t.items() if k != "id"}
+                for t in added},
+            "additional_special_tokens": list(QWEN_SPECIAL_TOKENS[1:]),
+            "bos_token": None, "eos_token": "<|im_end|>",
+            "pad_token": "<|endoftext|>", "unk_token": None,
+            "chat_template": QWEN_CHATML,
+            "clean_up_tokenization_spaces": False, "errors": "replace",
+            "model_max_length": 131072, "split_special_tokens": False},
+    }
+    os.makedirs(path, exist_ok=True)
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as fh:
+            json.dump(obj, fh, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges)
+                 + "\n")
+    return len(vocab) + len(added)
+
+
 def _write_prompts(path: str) -> None:
     with open(os.path.join(path, "tts_prompts.json"), "w") as f:
         json.dump({
@@ -416,7 +556,11 @@ def write_published_snapshot(path: str, cfg, seed: int = 0,
     ``SpeechTokenizerConfig`` (``SpeechTokenizerConfig()``, the published
     widths, whose 16 books of 2048 match the published code space), or
     ``True`` for the JAX package's scaled-down fixture; its code space is
-    the config's."""
+    the config's.
+
+    The text tokenizer files of ``write_qwen_tokenizer`` are written where
+    the talker's text vocabulary holds their ids (not the tiny configs'
+    256 ids)."""
     from ..models.code2wav import init_code2wav
     from ..models.init import InitPlan
     from .weights import _C2W_BLOCK_NORMS, _leaves
@@ -515,6 +659,8 @@ def write_published_snapshot(path: str, cfg, seed: int = 0,
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf, f)
     _write_prompts(path)
+    if t.vocab_size >= 256 + QWEN_MERGES + len(QWEN_SPECIAL_TOKENS):
+        write_qwen_tokenizer(path)
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 

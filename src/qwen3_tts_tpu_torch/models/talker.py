@@ -4,8 +4,11 @@ codebook-0 codec token per 12 Hz frame.
 Layers are stacked along a leading ``L`` axis in the parameter tree (the
 JAX package's layout) and driven by a Python loop; callers on the hot path
 pass ``blocks`` pre-split into a list of per-layer dicts
-(``layers.unstack_layers``). Multi-token prediction heads
-(``frames_per_step > 1``) wait for ROADMAP queue A, item 9.
+(``layers.unstack_layers``). Multi-token prediction
+(``frames_per_step > 1``): the ``mtp`` subtree merges one step's frame
+embeddings into the next talker input and runs a small SwiGLU block that
+maps (hidden, previous frame's embedding) to the next frame's hidden,
+scored by the shared codec head.
 """
 
 from __future__ import annotations
@@ -53,12 +56,7 @@ def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
             "ln2": init.ones(t.hidden),
         }
 
-    if t.frames_per_step > 1:
-        raise NotImplementedError(
-            "MTP heads (frames_per_step > 1) wait for the published-protocol "
-            "slice (ROADMAP queue A, item 9)"
-        )
-    return {
+    params: Params = {
         "text_emb": init.normal((t.vocab_size, t.hidden), 0.02),
         "codec_emb": init.normal((t.codec_vocab, t.hidden), 0.02),
         "spk_emb": init.normal((t.n_speakers, t.hidden), 0.02),
@@ -66,6 +64,44 @@ def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         "ln_f": init.ones(t.hidden),
         "head": init.linear(t.codec_vocab, t.hidden, **qz),
     }
+    if t.frames_per_step > 1:
+        # quantized like the rest of the tree: int8 heads reach the kernels
+        params["mtp"] = _init_mtp(init, t, qz)
+    return params
+
+
+def _init_mtp(init, t: TalkerConfig, qz: dict) -> Params:
+    """The MTP block: ``merge`` projects a step's fps frame embeddings into
+    one talker input; the SwiGLU block maps (hidden + previous frame's
+    embedding) to the next frame's hidden. Read once a step, not a frame."""
+    return {
+        "merge": init.linear(t.hidden, t.frames_per_step * t.hidden, **qz),
+        "mlp": {
+            "gate": init.linear(t.ffn, t.hidden, **qz),
+            "up": init.linear(t.ffn, t.hidden, **qz),
+            "down": init.linear(t.hidden, t.ffn, **qz),
+        },
+        "ln": init.ones(t.hidden),
+    }
+
+
+def add_mtp_params(params: Params, cfg: ModelConfig, seed: int = 0) -> Params:
+    """Graft freshly initialised MTP heads onto a talker tree (real
+    checkpoints carry none; ``finetune.py --mtp-fps`` trains them), drawn
+    on the host as the JAX package draws them. ``cfg`` must carry the
+    target ``frames_per_step``. The heads are ALWAYS dense whatever
+    ``cfg.quant`` says: they exist to be trained."""
+    t = cfg.talker
+    if t.frames_per_step <= 1:
+        raise ValueError(
+            "add_mtp_params needs cfg.talker.frames_per_step > 1 "
+            "(configs.with_frames_per_step)")
+    if "mtp" in params:
+        raise ValueError("params already carry an 'mtp' subtree")
+    init = make_init(seed, torch_dtype(cfg))
+    qz = dict(quantize=False, group_size=cfg.quant.group_size,
+              bits=cfg.quant.bits)
+    return {**params, "mtp": _init_mtp(init, t, qz)}
 
 
 def talker_forward(
@@ -109,14 +145,14 @@ def embed_codec_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 def merge_step_embs(params: Params, t: TalkerConfig,
                     embs: torch.Tensor) -> torch.Tensor:
     """One step's frame embeddings [B, frames_per_step, D] -> the talker's
-    next input embedding [B, D]; at frames_per_step == 1 the single
-    embedding (under the residual_sum protocol the full feedback vector:
-    cb0 + residual sum + trailing-text row)."""
-    if t.frames_per_step != 1:
-        raise NotImplementedError(
-            "MTP merge (frames_per_step > 1) waits for ROADMAP queue A, item 9"
-        )
-    return embs[:, 0]
+    next input embedding [B, D] (under the residual_sum protocol each frame
+    embedding is the full feedback vector: cb0 + residual sum +
+    trailing-text row). At frames_per_step == 1 the single embedding,
+    otherwise the learned ``mtp.merge`` of their concatenation."""
+    if t.frames_per_step == 1:
+        return embs[:, 0]
+    return linear(embs.reshape(embs.shape[0], t.frames_per_step * t.hidden),
+                  params["mtp"]["merge"])
 
 
 def merge_step_tokens(params: Params, t: TalkerConfig,
@@ -124,6 +160,42 @@ def merge_step_tokens(params: Params, t: TalkerConfig,
     """One step's token ids [B, frames_per_step] -> the talker's next input
     embedding [B, D]; at frames_per_step == 1 the plain codec embedding."""
     return merge_step_embs(params, t, params["codec_emb"][tokens])
+
+
+def mtp_hidden_emb(params: Params, t: TalkerConfig, hidden: torch.Tensor,
+                   prev_emb: torch.Tensor) -> torch.Tensor:
+    """Next-frame hidden [B, D] from the chain hidden [B, D] and the
+    previous frame's INPUT embedding [B, D] (the cb0 protocol: its codec
+    embedding; residual_sum: its feedback embedding, cb0 + residual sum)."""
+    mtp = params["mtp"]
+    x = hidden + prev_emb.to(hidden.dtype)
+    h = rmsnorm(x, mtp["ln"], t.rms_eps)
+    gate = linear(h, mtp["mlp"]["gate"])
+    up = linear(h, mtp["mlp"]["up"])
+    return x + linear(F.silu(gate) * up, mtp["mlp"]["down"])
+
+
+def mtp_hidden(params: Params, t: TalkerConfig, hidden: torch.Tensor,
+               prev_tok: torch.Tensor) -> torch.Tensor:
+    """``mtp_hidden_emb`` conditioned on the previous frame's token [B]."""
+    return mtp_hidden_emb(params, t, hidden, params["codec_emb"][prev_tok])
+
+
+def mtp_logits_emb(params: Params, t: TalkerConfig, hidden: torch.Tensor,
+                   prev_emb: torch.Tensor):
+    """(logits f32 [B, codec_vocab], next hidden [B, D]) of one MTP frame
+    conditioned on the previous frame's input embedding, scored by the
+    shared codec head."""
+    h = mtp_hidden_emb(params, t, hidden, prev_emb)
+    logits = linear(rmsnorm(h, params["ln_f"], t.rms_eps),
+                    params["head"]).float()
+    return logits, h
+
+
+def mtp_logits(params: Params, t: TalkerConfig, hidden: torch.Tensor,
+               prev_tok: torch.Tensor):
+    """``mtp_logits_emb`` conditioned on the previous frame's token [B]."""
+    return mtp_logits_emb(params, t, hidden, params["codec_emb"][prev_tok])
 
 
 def text_projection(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,11 @@ same weights, transcribe both (this package's Whisper through
   be bit-identical under greedy decode and information for protocol
   changes.
 
-Variants: ``kv=int8`` (the int8 KV cache) and ``dg=K`` (grouped depth
-prediction) run; the MTP variants (``fps=N`` > 1, ``cpb``) and speculative
-depth decode (``spec`` with ``dg`` > 1) raise NotImplementedError naming
-ROADMAP item 9 (the port's Generator and code predictor refuse them).
+Variants: ``kv=int8`` (the int8 KV cache), ``dg=K`` (grouped depth
+prediction), ``spec=1`` (speculative depth decode: with ``dg`` > 1, the
+depth_group=1 greedy codes at grouped-draft cost), ``fps=N`` (multi-token
+prediction, on a model whose talker carries MTP heads) and ``cpb=1`` (the
+batched-cp MTP chain, with ``fps`` > 1).
 """
 
 from __future__ import annotations
@@ -171,13 +172,17 @@ def parse_variant(spec: str) -> dict[str, Any]:
 def variant_model(model, opts: dict[str, Any]):
     """A model VIEW decoding ``model``'s weights under a different decode
     configuration (fps/dg/spec/cpb). Parameter trees are shared, not
-    copied; only the config changes. The MTP variants (fps > 1, cpb) and
-    speculative depth decode (spec with dg > 1) raise NotImplementedError
-    naming ROADMAP item 9 when the view's generator is built or first
-    decodes; grouped depth prediction (dg > 1) runs."""
+    copied; only the config changes. A model trained at fps=N carries the
+    MTP parameters, so any smaller fps decodes from the same tree; fps > 1
+    on a tree without them raises."""
     from .engine.api import Qwen3TTSModel
 
     cfg = model.cfg
+    if opts.get("fps", 1) > 1 and "mtp" not in model.params:
+        raise ValueError(
+            f"variant fps={opts['fps']} needs the MTP chain parameters, but "
+            f"model {model.name!r} was not trained with them (decode at "
+            "fps=1, or graft and train the heads first)")
     if "fps" in opts:
         cfg = dataclasses.replace(
             cfg, talker=dataclasses.replace(

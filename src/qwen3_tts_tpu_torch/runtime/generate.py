@@ -12,6 +12,11 @@ Eager PyTorch with the JAX package's structure:
   protocol the code predictor runs once per frame inside the talker loop,
   since each step's input sums the previous frame's codebook embeddings and
   one trailing-text row (``make_decode_chunk_fn_feedback``);
+- multi-token prediction (``frames_per_step`` fps > 1): each talker step
+  emits fps frames, frame 0 from the main head and the others through the
+  MTP chain (``models.talker.mtp_logits``), and the next step's input is
+  the merge of the fps frames' embeddings, so the talker advances one
+  cache position per fps frames;
 - the host reads ONE packed tensor per chunk (valid-frame count, codes and
   PCM), which is where EOS is detected and the chunk is clipped;
 - prompts are LEFT-padded to length buckets (RoPE is relative and padded
@@ -44,6 +49,8 @@ from ..models.layers import (
 from ..models.talker import (
     merge_step_embs,
     merge_step_tokens,
+    mtp_logits,
+    mtp_logits_emb,
     talker_forward,
     text_projection,
 )
@@ -185,6 +192,21 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
     return prefill
 
 
+def seed_tokens(params, cfg: ModelConfig, sampling: SamplingConfig, hidden,
+                logits, generator) -> torch.Tensor:
+    """The cb0 protocol's seed step: frame 0 from the prefill logits, the
+    other fps - 1 frames through the MTP chain. hidden [B, D], logits
+    [B, V] -> tokens [B, fps]; they condition the first decode step and
+    are not rendered."""
+    t = cfg.talker
+    toks = [sample_token(logits, generator, sampling)]
+    h = hidden
+    for _ in range(1, t.frames_per_step):
+        lg, h = mtp_logits(params, t, h, toks[-1])
+        toks.append(sample_token(lg, generator, sampling))
+    return torch.stack(toks, dim=1)
+
+
 def _hold_inactive(active, new, old):
     """``new`` where a serving slot decodes, ``old`` where it holds (an
     inactive slot keeps its position and counters); ``active`` None: every
@@ -235,14 +257,22 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
                 params, t, emb, ck, cv, pos, cos_t, sin_t,
                 pad_len=pad_len, window_split=window_split,
             )
-            tok = sample_token(logits[:, -1, :], generator, sampling)[:, None]
-            tok = _hold_inactive(active, tok, t.codec_pad)
+            h = hidden[:, -1, :]
+            frame = [sample_token(logits[:, -1, :], generator, sampling)]
+            hj = h
+            for _ in range(1, fps):  # MTP frames from the same weight pass
+                lg, hj = mtp_logits(params, t, hj, frame[-1])
+                frame.append(sample_token(lg, generator, sampling))
+            tok = _hold_inactive(active, torch.stack(frame, dim=1),
+                                 t.codec_pad)                # [B, fps]
             pos = _hold_inactive(active, pos + 1, pos)
             toks.append(tok)
-            hiddens.append(hidden[:, -1, :])
+            hiddens.append(h)
         tokens_bc = torch.cat(toks, dim=1)                   # [B, chunk]
         B = tokens_bc.shape[0]
-        flat_h = torch.stack(hiddens, dim=1).reshape(B * chunk, -1)
+        # each step's hidden conditions the residuals of all its fps frames
+        flat_h = torch.stack(hiddens, dim=1).repeat_interleave(
+            fps, dim=1).reshape(B * chunk, -1)
         # control tokens (BOS/EOS/PAD >= codebook_size) are clamped for the
         # predictor; the host masks frames at/after EOS anyway
         flat_cb0 = tokens_bc.reshape(-1).clamp(0, cb_size - 1)
@@ -266,24 +296,66 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
     return decode_chunk
 
 
+def feedback_step_frames(params, cp_params, cfg: ModelConfig,
+                         sampling: SamplingConfig, hidden, cb0, generator,
+                         dtype):
+    """The fps frames of one residual_sum step after its first token:
+    ``cb0`` [B] was drawn from the talker head at ``hidden`` [B, D];
+    frames 1..fps-1 come through the MTP chain. Returns (tok [B, fps],
+    feedback sums [B, fps, D] in ``dtype``, residual codes [B, fps, Q-1]).
+
+    By default each frame has its own predictor pass and the chain
+    conditions frame j+1 on frame j's full feedback embedding (cb0 +
+    residual sum). Under ``mtp_cp_batch`` the chain conditions on cb0
+    embeddings alone, so ONE predictor pass covers all fps frames as
+    batch rows."""
+    t = cfg.talker
+    fps = t.frames_per_step
+    cb = cfg.codec.codebook_size
+    cp_gen = generator if cp_samples(cfg, sampling) else None
+    codec_emb = params["codec_emb"]
+    h = hidden
+    if t.mtp_cp_batch and fps > 1:
+        toks, hs = [], []
+        for j in range(fps):
+            toks.append(cb0)
+            hs.append(h)
+            if j + 1 < fps:
+                lg, h = mtp_logits_emb(params, t, h, codec_emb[cb0].to(dtype))
+                cb0 = sample_token(lg, generator, sampling)
+        tok = torch.stack(toks, dim=1)                             # [B, fps]
+        B = tok.shape[0]
+        res, rs = predict_residuals(
+            cp_params, cfg, torch.stack(hs, dim=1).reshape(B * fps, -1),
+            tok.reshape(-1).clamp(0, cb - 1), generator=cp_gen,
+            return_feedback=True)
+        return (tok, rs.reshape(B, fps, -1).to(dtype),
+                res.reshape(B, fps, -1))
+    toks, rss, ress = [], [], []
+    for j in range(fps):
+        res, rs = predict_residuals(cp_params, cfg, h, cb0.clamp(0, cb - 1),
+                                    generator=cp_gen, return_feedback=True)
+        toks.append(cb0)
+        rss.append(rs.to(dtype))
+        ress.append(res)
+        if j + 1 < fps:  # the MTP chain: next frame, same weight pass
+            lg, h = mtp_logits_emb(params, t, h,
+                                   codec_emb[cb0].to(dtype) + rss[-1])
+            cb0 = sample_token(lg, generator, sampling)
+    return (torch.stack(toks, dim=1), torch.stack(rss, dim=1),
+            torch.stack(ress, dim=1))
+
+
 def seed_feedback_frames(params, cp_params, cfg: ModelConfig,
                          sampling: SamplingConfig, hidden, logits, generator):
-    """The published protocol's seed step at frames_per_step == 1: frame 0
-    from the prefill logits and one predictor pass for its residual codes.
-    hidden [B, D], logits [B, V] -> (tok [B, 1], feedback sum [B, 1, D],
-    residual codes [B, 1, Q-1]); the frame conditions the first decode
-    step and is not rendered."""
-    if cfg.talker.frames_per_step != 1:
-        raise NotImplementedError(
-            "MTP seed frames (frames_per_step > 1) wait for ROADMAP queue A, "
-            "item 9")
-    cb = cfg.codec.codebook_size
+    """The published protocol's seed step: frame 0 from the prefill
+    logits, then ``feedback_step_frames``. hidden [B, D], logits [B, V] ->
+    (tok [B, fps], feedback sums [B, fps, D], residual codes
+    [B, fps, Q-1]); the frames condition the first decode step and are not
+    rendered."""
     cb0 = sample_token(logits, generator, sampling)
-    res, rs = predict_residuals(
-        cp_params, cfg, hidden, cb0.clamp(0, cb - 1),
-        generator=generator if cp_samples(cfg, sampling) else None,
-        return_feedback=True)
-    return cb0[:, None], rs.to(hidden.dtype)[:, None], res[:, None]
+    return feedback_step_frames(params, cp_params, cfg, sampling, hidden,
+                                cb0, generator, hidden.dtype)
 
 
 def trailing_lookup(trailing: torch.Tensor, g) -> torch.Tensor:
@@ -304,30 +376,32 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
                                   window_split: tuple | None = None
                                   ) -> Callable:
     """The published protocol's chunk (transformers
-    Qwen3OmniMoeTalkerForConditionalGeneration.prepare_inputs_for_generation)
-    at frames_per_step == 1: each talker step consumes the SUM of the
-    previous frame's codebook embeddings (cb0 through the talker's
-    codec_emb, residual d through the code predictor's depth-d table) and
-    one trailing-text row, so the code predictor runs once per frame inside
-    the loop. Then the streaming codec and PCM, as the cb0 chunk (whose
-    docstring says how both engines drive it: ``active``,
-    ``window_split``)."""
+    Qwen3OmniMoeTalkerForConditionalGeneration.prepare_inputs_for_generation):
+    each talker step consumes the SUM of the previous frame's codebook
+    embeddings (cb0 through the talker's codec_emb, residual d through the
+    code predictor's depth-d table) and one trailing-text row, so the code
+    predictor runs once per frame inside the loop. Then the streaming codec
+    and PCM, as the cb0 chunk (whose docstring says how both engines drive
+    it: ``active``, ``window_split``).
+
+    At fps > 1 a talker pass emits fps frames (``feedback_step_frames``),
+    each keeping its own feedback sum and trailing-text row, and the next
+    pass consumes the MERGE of the fps frames' feedback embeddings."""
     t = cfg.talker
-    if t.frames_per_step != 1:
-        raise NotImplementedError(
-            "MTP under residual_sum (frames_per_step > 1) waits for ROADMAP "
-            "queue A, item 9")
+    fps = t.frames_per_step
+    if chunk % fps:
+        raise ValueError(f"chunk {chunk} is not a multiple of fps {fps}")
+    n_steps = chunk // fps
     S = cfg.max_seq_len
     A = attn_len or S
     cb_size = cfg.codec.codebook_size
-    cp_stoch = cp_samples(cfg, sampling)
 
     def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
                      cstate, trailing, pos, pad_len, n_frames, last_token,
                      res_sum, g, generator, active=None):
-        """trailing [B, Tb, D]; last_token [B, 1]; res_sum [B, 1, D] the
-        feedback sum of last_token's residual codes; g the trailing rows
-        consumed; pos/pad_len/n_frames/g ints or [B] tensors. Returns
+        """trailing [B, Tb, D]; last_token [B, fps]; res_sum [B, fps, D]
+        the feedback sums of last_token's residual codes; g the trailing
+        rows consumed; pos/pad_len/n_frames/g ints or [B] tensors. Returns
         (cache_k, cache_v, cstate, pos, tok, n_frames, res_sum, g,
         n_valid [B], codes [B, Q, chunk], pcm [B, chunk*hop])."""
         cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta,
@@ -335,30 +409,31 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
         ck, cv = cache_k[:, :, :A], cache_v[:, :, :A]  # views: writes land
         tok, rs = last_token, res_sum
         toks, residuals = [], []
-        for _ in range(chunk):
-            prev = params["codec_emb"][tok].to(rs.dtype) + rs      # [B, 1, D]
-            trail = trailing_lookup(trailing, g)[:, None]
+        for _ in range(n_steps):
+            # the previous step's fps frames, each its full feedback
+            # embedding plus its own trailing-text row, merged into one input
+            prev = params["codec_emb"][tok].to(rs.dtype) + rs    # [B, fps, D]
+            trail = torch.stack([trailing_lookup(trailing, g + j)
+                                 for j in range(fps)], dim=1)
             emb = merge_step_embs(params, t, prev + trail)[:, None, :]
             hidden, logits, _, _ = talker_forward(
                 params, t, emb, ck, cv, pos, cos_t, sin_t,
                 pad_len=pad_len, window_split=window_split,
             )
             cb0 = sample_token(logits[:, -1, :], generator, sampling)
-            res, rs_new = predict_residuals(
-                cp_params, cfg, hidden[:, -1, :], cb0.clamp(0, cb_size - 1),
-                generator=generator if cp_stoch else None,
-                return_feedback=True)
-            cb0 = _hold_inactive(active, cb0, t.codec_pad)
-            tok = cb0[:, None]
-            rs = _hold_inactive(active, rs_new.to(rs.dtype)[:, None], rs)
+            frame_toks, rs_new, res = feedback_step_frames(
+                params, cp_params, cfg, sampling, hidden[:, -1, :], cb0,
+                generator, rs.dtype)
+            tok = _hold_inactive(active, frame_toks, t.codec_pad)  # [B, fps]
+            rs = _hold_inactive(active, rs_new, rs)
             pos = _hold_inactive(active, pos + 1, pos)
-            g = _hold_inactive(active, g + 1, g)
-            toks.append(cb0)
+            g = _hold_inactive(active, g + fps, g)
+            toks.append(tok)
             residuals.append(res)
-        tokens_bc = torch.stack(toks, dim=1)                       # [B, chunk]
+        tokens_bc = torch.cat(toks, dim=1)                         # [B, chunk]
         codes = torch.cat(
             [tokens_bc.clamp(0, cb_size - 1)[:, :, None],
-             torch.stack(residuals, dim=1)], dim=-1,
+             torch.cat(residuals, dim=1)], dim=-1,
         ).transpose(1, 2)                                          # [B, Q, chunk]
         wav_chunk, cstate = decode_codes_streaming(
             codec_params, cfg, codes, cstate, n_frames)
@@ -399,9 +474,6 @@ class Generator:
 
     def __post_init__(self):
         t = self.cfg.talker
-        if t.frames_per_step != 1:
-            raise NotImplementedError(
-                "MTP (frames_per_step > 1) waits for ROADMAP queue A, item 9")
         self.device = _first_device(self.params)
         self.dtype = torch_dtype(self.cfg)
         self.cp_params, self.codec_params = fuse_decode_params(
@@ -438,11 +510,6 @@ class Generator:
                  t.head_dim)
         return (kv_cache_init(shape, self.dtype, device=self.device),
                 kv_cache_init(shape, self.dtype, device=self.device))
-
-    def _seed_tokens(self, hidden_last, logits, generator) -> torch.Tensor:
-        """The seed step's token [B, 1] from the prefill logits: it
-        conditions the first decode step and is not rendered."""
-        return sample_token(logits, generator, self.sampling)[:, None]
 
     # -- prompt embedding (once per utterance) ----------------------------
 
@@ -668,12 +735,13 @@ class Generator:
         if feedback:
             tok, res_sum, _ = seed_feedback_frames(
                 self.params, self.cp_params, cfg, self.sampling, hidden_last,
-                logits, gen)                                 # [1, 1], [1, 1, D]
+                logits, gen)                             # [1, fps], [1, fps, D]
             # the feedback carry holds the config's dtype, as in the JAX
             # package, also where imported float32 tables widen the hidden
             res_sum = res_sum.to(self.dtype)
         else:
-            tok = self._seed_tokens(hidden_last, logits, gen)  # [1, fps]
+            tok = seed_tokens(self.params, cfg, self.sampling, hidden_last,
+                              logits, gen)                   # [1, fps]
         pos, n_frames_dev, g = Lb, 0, 0
 
         wav_pieces: list[np.ndarray] = []

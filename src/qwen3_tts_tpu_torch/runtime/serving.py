@@ -21,6 +21,10 @@ Design (continuous batching, slot model):
   ``runtime.generate`` (the single-stream path runs the same functions:
   the serving == single-stream parity lives in one place); a slot that is
   not decoding holds its position and emits ``codec_pad``;
+- multi-token prediction (``frames_per_step`` fps > 1): a slot keeps its
+  previous step's fps tokens (and, under residual_sum, their fps feedback
+  sums), chunks are whole steps, and a step advances one cache position
+  per fps frames;
 - per-slot-group attention windows: each group of slots reads only the
   cache prefix its longest stream needs;
 - ONE host read per dispatched step: its results packed into one tensor,
@@ -49,13 +53,15 @@ from ..models.layers import kv_cache_init, kv_env_format, rope_tables
 from ..models.talker import talker_forward
 from . import generate
 from .generate import (
+    align_chunk_schedule,
     default_chunk_schedule,
     make_decode_chunk_fn,
     make_decode_chunk_fn_feedback,
     seed_feedback_frames,
+    seed_tokens,
 )
 from .prompts import PromptSpec
-from .sampling import SamplingConfig, sample_token
+from .sampling import SamplingConfig
 
 
 def _async_fetch() -> bool:
@@ -202,12 +208,16 @@ class ServingEngine:
         self.dtype = dtype = gen.dtype
         self.B = max_streams
         t = self.cfg.talker
+        self.fps = t.frames_per_step
         if chunk_schedule is not None:
             self.chunk_schedule = tuple(chunk_schedule)
         elif chunk is not None:
             self.chunk_schedule = (chunk,)
         else:
             self.chunk_schedule = default_chunk_schedule(t)
+        # chunks are whole MTP steps (as the Generator's)
+        self.chunk_schedule = align_chunk_schedule(self.chunk_schedule,
+                                                   self.fps)
         self.sampling = sampling or SamplingConfig()
         dev, B = self.device, self.B
         shape = (t.n_layers, B, self.cfg.max_seq_len, t.n_kv_heads, t.head_dim)
@@ -222,7 +232,7 @@ class ServingEngine:
         self.pos = torch.zeros(B, dtype=torch.long, device=dev)
         self.pad = torch.zeros(B, dtype=torch.long, device=dev)
         self.frames_dev = torch.zeros(B, dtype=torch.long, device=dev)
-        self.tok = torch.full((B, 1), t.codec_pad, dtype=torch.long,
+        self.tok = torch.full((B, self.fps), t.codec_pad, dtype=torch.long,
                               device=dev)
         self.active_mask = torch.zeros(B, dtype=torch.bool, device=dev)
         # wav accumulation (batch jobs): each step's PCM is written into a
@@ -239,7 +249,7 @@ class ServingEngine:
         # trailing-text buffers and consumed-row counters
         self.feedback = t.feedback == "residual_sum"
         if self.feedback:
-            self.res_sum = torch.zeros((B, 1, t.hidden), dtype=dtype,
+            self.res_sum = torch.zeros((B, self.fps, t.hidden), dtype=dtype,
                                        device=dev)
             self.trail = torch.zeros((B, t.trailing_bucket, t.hidden),
                                      dtype=dtype, device=dev)
@@ -277,8 +287,9 @@ class ServingEngine:
 
     @chunk.setter
     def chunk(self, value: int) -> None:
-        if value <= 0:
-            raise ValueError(f"chunk must be positive: {value}")
+        if value <= 0 or value % self.fps:
+            raise ValueError(f"chunk must be a positive multiple of "
+                             f"frames_per_step {self.fps}: {value}")
         self.chunk_schedule = (value,)
 
     def _pick_chunk(self, active) -> int:
@@ -346,14 +357,14 @@ class ServingEngine:
                 )
         emb, pad, trailing = self.model.generator.assemble_prompt_full(prompt)
         Lb = emb.shape[1]
-        # cap against BOTH the talker cache (positions) and the codec's
-        # position tables (frames); the 2-chunk margin covers whole chunks
-        # dispatched past the budget
-        budget = min(self.cfg.max_seq_len - Lb,
+        # cap against BOTH the talker cache (positions, fps frames each)
+        # and the codec's position tables (frames); the 2-chunk margin
+        # covers whole chunks dispatched past the budget
+        budget = min((self.cfg.max_seq_len - Lb) * self.fps,
                      max_stream_frames(self.cfg) - 2 * max(self.chunk_schedule))
         max_frames = max(1, min(max_frames, budget))
         # the prompt bucket is left-padded: it fills positions 0..Lb
-        expected_end = Lb + max_frames
+        expected_end = Lb + -(-max_frames // self.fps)
         slot = self._pick_slot(expected_end)
         stream = Stream(slot=slot, stream_id=self._next_id,
                         max_frames=max_frames, expected_end=expected_end,
@@ -481,7 +492,8 @@ class ServingEngine:
                 self.params, self.cp_params, self.cfg, self.sampling, hidden,
                 logits, self.rng)
         else:
-            first = sample_token(logits, self.rng, self.sampling)[:, None]
+            first = seed_tokens(self.params, self.cfg, self.sampling, hidden,
+                                logits, self.rng)           # [nb, fps]
         self.cache_k[:, slots, :Lb] = sk
         self.cache_v[:, slots, :Lb] = sv
         self.pos[slots] = Lb
@@ -520,11 +532,12 @@ class ServingEngine:
         if all(self._host_frames[slot] >= s.max_frames for slot, s in active):
             return None
         chunk = self._pick_chunk(active)
+        steps = chunk // self.fps        # cache positions a dispatch advances
         S = self.cfg.max_seq_len
         size = self.B // self.n_groups
         wins = tuple(
             generate.attn_bucket(max((self._host_pos[slot] for slot, _ in active
-                                      if slot // size == g), default=0) + chunk,
+                                      if slot // size == g), default=0) + steps,
                                  S)
             for g in range(self.n_groups))
         fn = self._decode_fn(chunk, wins)
@@ -555,7 +568,7 @@ class ServingEngine:
                                wav.reshape(-1).to(torch.int32)])
             codes = wav = None
         for slot, _ in active:
-            self._host_pos[slot] += chunk
+            self._host_pos[slot] += steps
             self._host_frames[slot] += chunk
         snapshot = [(slot, s.stream_id) for slot, s in active]
         return snapshot, chunk, _HostCopy(fetch, _async_fetch()), codes, wav

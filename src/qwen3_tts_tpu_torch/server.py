@@ -892,13 +892,14 @@ def model_device() -> str:
 
 
 def build_model(name: str, mode: str, device: str):
-    """``synthetic`` (the flagship at one frame a step), ``synthetic-tiny``,
+    """``synthetic`` (the flagship at two frames a step, its MTP heads
+    int8 like the rest of the tree), ``synthetic-tiny``,
     ``synthetic-tiny-code2wav``, or a checkpoint directory."""
     from .engine import configs
     from .engine.api import Qwen3TTSModel, load_model
 
     presets = {
-        "synthetic": lambda: configs.flagship(mode),
+        "synthetic": lambda: configs.flagship(mode, frames_per_step=2),
         "synthetic-tiny": lambda: configs.tiny(mode),
         "synthetic-tiny-code2wav": lambda: configs.tiny_code2wav(mode),
     }

@@ -123,7 +123,8 @@ def test_imported_bf16_prefill_logits_agree_and_both_synthesize(snapshot,
 
 BLOCKED = textwrap.dedent("""
     import os, sys, tempfile, warnings
-    for name in ("jax", "jaxlib", "safetensors", "transformers", "ml_dtypes"):
+    for name in ("jax", "jaxlib", "safetensors", "transformers", "ml_dtypes",
+                 "tokenizers", "regex"):
         sys.modules[name] = None
     sys.path.insert(0, os.path.join(sys.argv[1], "src"))
     import torch
@@ -137,11 +138,13 @@ BLOCKED = textwrap.dedent("""
     tmp = tempfile.TemporaryDirectory()
     snap = tmp.name
     write_published_snapshot(snap, cfg, seed=1, fast=True)
-    open(os.path.join(snap, "tokenizer.json"), "w").write("{}")
+    # a 256-entry text vocabulary: no tokenizer files, the byte tokenizer
+    assert not os.path.exists(os.path.join(snap, "tokenizer.json"))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         first = load_model(snap, device="cpu")
-    assert any("tokenizer" in str(w.message) for w in caught), caught
+    assert not [w for w in caught if "tokenizer" in str(w.message)], caught
+    assert type(first.tokenizer).__name__ == "ByteTokenizer"
     assert first.import_report.unmapped == []
     assert os.path.exists(os.path.join(snap, NATIVE_DIR, "tts_config.json"))
     again = load_model(snap, device="cpu")
@@ -158,7 +161,8 @@ BLOCKED = textwrap.dedent("""
     m = generate_audio(model=again, text="hi there", voice="ryan",
                        output_path=snap, max_frames=6)
     assert m["frames"] > 0
-    assert not [n for n in ("jax", "safetensors", "transformers", "ml_dtypes")
+    assert not [n for n in ("jax", "safetensors", "transformers", "ml_dtypes",
+                            "tokenizers", "regex")
                 if sys.modules.get(n) is not None]
     tmp.cleanup()
     print("OK")

@@ -39,6 +39,7 @@ from qwen3_tts_tpu_torch.engine.weights import params_from_numpy
 from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
 from qwen3_tts_tpu_torch.server import (
     TTSService,
+    build_model,
     make_server,
     wav_stream_header,
 )
@@ -519,3 +520,24 @@ def test_run_batch_resume(served, tmp_path):
     assert os.path.getmtime(os.path.join(out, "t2.wav")) == mtime
     s3 = batch.run_batch(service, items[1:], out)
     assert s3["ok"] == 1
+
+
+@pytest.mark.parametrize("name,fps", [
+    ("synthetic", 2), ("synthetic-tiny", 1), ("synthetic-tiny-code2wav", 1)])
+def test_synthetic_daemon_models_and_their_frames_per_step(name, fps,
+                                                           monkeypatch):
+    """``--model synthetic`` is the flagship at two frames a step, as the
+    JAX daemon's default (its MTP heads come with the synthetic tree); the
+    tiny presets decode one frame a step. Qwen3TTSModel.synthetic is stubbed:
+    the flagship is not drawn on the CPU here."""
+    from qwen3_tts_tpu_torch.engine import api
+
+    seen = []
+    monkeypatch.setattr(api.Qwen3TTSModel, "synthetic", classmethod(
+        lambda cls, cfg, device=None: seen.append((cfg, device)) or cfg))
+    cfg = build_model(name, "design", "cpu")
+    assert seen == [(cfg, "cpu")]
+    assert cfg.talker.frames_per_step == fps and cfg.mode == "design"
+    if name == "synthetic":
+        assert cfg.talker.hidden == jcfgs.flagship().talker.hidden
+        assert cfg == tcfgs.flagship("design", frames_per_step=2)

@@ -302,15 +302,34 @@ def test_compare_decode_configs_kv_int8(tiny_model):
     assert none["variants"]["kv8"]["median_wer_delta"] is None
 
 
+@pytest.fixture(scope="module")
+def tiny_mtp_model():
+    return Qwen3TTSModel.synthetic(
+        tcfgs.tiny_feedback(frames_per_step=2), seed=4, device="cpu")
+
+
 @pytest.mark.parametrize("opts", [
     {"fps": 2}, {"fps": 2, "cpb": True}, {"dg": 3, "spec": True}],
     ids=["fps2", "fps2_cpb", "dg3_spec"])
-def test_unported_decode_variants_raise_naming_item_9(tiny_model, opts):
-    vm = quality.variant_model(tiny_model, opts)
-    assert vm.params is tiny_model.params  # a view, not a copy
-    with pytest.raises(NotImplementedError, match="item 9"):
-        quality.compare_decode_configs(tiny_model, {"v": opts}, ["text"],
-                                       None, max_frames=4)
+def test_unported_decode_variants_raise_naming_item_9(tiny_mtp_model, opts):
+    """Named for what it pinned while item 9 was unported: these variants
+    raised. They run now on a residual_sum model that carries MTP heads
+    (a view, not a copy): fps and cpb change the protocol; spec keeps the
+    depth_group=1 greedy output, so its audio is the baseline's exactly.
+    An fps > 1 variant of a model without MTP heads raises, as in the JAX
+    package."""
+    vm = quality.variant_model(tiny_mtp_model, opts)
+    assert vm.params is tiny_mtp_model.params
+    base = quality.variant_model(tiny_mtp_model, {"fps": 1})
+    rep = quality.compare_decode_configs(base, {"v": opts}, ["text"], None,
+                                         max_frames=4)
+    v = rep["variants"]["v"]
+    assert v["protocol_changing"]  # fps or dg differ from the baseline
+    if "spec" in opts:
+        assert v["median_identical_frac"] == 1.0
+    with pytest.raises(ValueError, match="MTP"):
+        quality.variant_model(Qwen3TTSModel.synthetic(
+            tcfgs.tiny("custom"), seed=4, device="cpu"), {"fps": 2})
 
 
 def test_grouped_depth_variant_runs(tiny_model):

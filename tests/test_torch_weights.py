@@ -390,14 +390,27 @@ def test_load_prompt_template_priority_and_marker_check(temp_dir):
 
 
 def test_tokenizer_warns_when_its_files_cannot_be_built(temp_dir, monkeypatch):
+    """Named for the byte fallback it pinned before the port had its own
+    BPE encoder. Tokenizer files that cannot be read now raise, under the
+    default encoder and under QWEN3_TTS_TOKENIZER=hf without transformers:
+    nothing falls back to bytes. Bytes stay the answer, without a word,
+    for a directory without vocabulary files and for tiny vocabularies."""
     from qwen3_tts_tpu_torch.engine.tokenizer import ByteTokenizer, load_tokenizer
 
-    assert isinstance(load_tokenizer(temp_dir, 151_936), ByteTokenizer)
-    open(os.path.join(temp_dir, "tokenizer.json"), "w").write("{}")
-    monkeypatch.setitem(__import__("sys").modules, "transformers", None)
-    with pytest.warns(UserWarning, match="byte tokenizer"):
-        assert isinstance(load_tokenizer(temp_dir, 151_936), ByteTokenizer)
-    # tiny vocabularies keep the byte tokenizer without a word
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        assert isinstance(load_tokenizer(temp_dir, 151_936), ByteTokenizer)
+        with open(os.path.join(temp_dir, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": CHAT}, f)  # no vocabulary in it
+        assert isinstance(load_tokenizer(temp_dir, 151_936), ByteTokenizer)
+        open(os.path.join(temp_dir, "tokenizer.json"), "w").write("{}")
+        with pytest.raises(ValueError, match="BPE"):
+            load_tokenizer(temp_dir, 151_936)
+        monkeypatch.setenv("QWEN3_TTS_TOKENIZER", "hf")
+        monkeypatch.setitem(__import__("sys").modules, "transformers", None)
+        with pytest.raises(ImportError):
+            load_tokenizer(temp_dir, 151_936)
         assert isinstance(load_tokenizer(temp_dir, 200), ByteTokenizer)
+        monkeypatch.setenv("QWEN3_TTS_TOKENIZER", "sentencepiece")
+        with pytest.raises(ValueError, match="QWEN3_TTS_TOKENIZER"):
+            load_tokenizer(temp_dir, 151_936)
