@@ -44,10 +44,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    long;
 7. checkpoint import: a snapshot in the published layout at the geometry
    of configs.flagship_feedback_code2wav() (~3 GB; the temp directory
-   needs ~7 GB free) is fabricated, imported with load_model(dir) (nothing
+   needs ~11 GB free, with phase 15's recovery export) is fabricated, imported with load_model(dir) (nothing
    unmapped or synthetic, residual_sum + code2wav at that config's
    widths), reloaded from its _tpu_native cache (every leaf bit-equal to
-   the first load's), and driven as one more main path, grouped layout;
+   the first load's), and driven as one more main path, grouped layout,
+   IMPORT_FRAMES frames;
    phase 3 also imports a tiny published-layout snapshot on the card and
    on the CPU, whose float32 greedy codes must be equal. The snapshot
    ships a fabricated Qwen2-style text tokenizer (tokenizer.json and the
@@ -98,8 +99,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    steps, tokens, n_valid, peak memory, kernel launches), and the same
    text through transcription.transcribe_wav; step ``quality`` (after
    phase ``server``, on its model): one compare_decode_configs step of
-   the int8 KV cache against the dense one, 64 frames, the turbo Whisper
-   transcribing (mel distance and WER printed, not gated);
+   the int8 KV cache against the dense one, QUALITY_FRAMES frames, the
+   turbo Whisper transcribing (mel distance and WER printed, not gated);
 13. phase ``server`` (server.py, client side over loopback): a tiny
    float32 greedy model behind TTSService and make_server on the card and
    on the CPU, whose two-segment /v1/synthesize WAV must equal
@@ -112,7 +113,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    A launches a frame, peak memory; a streaming client dropped after its
    first chunk, whose slot must free; /healthz, /v1/models and /metrics
    with the request and error counters checked; step ``batch``: run_batch
-   over eight items through the same service;
+   over BATCH_ITEMS items through the same service;
 14. phase ``mtp`` (multi-token prediction, batched-cp MTP and speculative
    depth decode): tiny float32 models with int8 weights, grouped layout,
    on the card and on the CPU -- fps 2 and 3 under the cb0 protocol
@@ -123,7 +124,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    frames a step drawn on the card (its MTP heads int8, so they run on
    kernel A), 64 frames through generate_audio with mtp_cp_batch off and
    on: RTF, TTFA, peak memory and kernel A launches a frame beside the
-   fps=1 main path's from phase 6.
+   fps=1 main path's from phase 6;
+15. phase ``train`` (training/, finetune.py; dense, so neither kernel
+   runs: their launch counts are printed, 0 required). Step
+   ``reference``: tiny float32 trees from the numpy initialisers, three
+   default_optimizer steps on one synthetic batch on the card and on the
+   CPU (cb0 with speakers and left padding, residual_sum, fps 2 with
+   mtp_cp_batch, depth_group 3 training a grafted draft alone, LoRA r=4):
+   the first step's losses and grad norm within 1e-4 relative, the later
+   steps' within 1e-3, every parameter element within 0.1 lr after every
+   step; then a save after two steps, a restore into fresh trees and a
+   third step on the card, equal to the uninterrupted run within the same
+   bounds. Steps ``full`` and ``lora``: finetune.main on the dense
+   flagship (``--model synthetic``, ~1.8 B parameters) over eight
+   seeded 2-4 s clips, 6 steps at batch 4 (``--lora 8`` for lora), with
+   s/step (median of steps 2-6), trained frames/s, peak memory and the
+   first and final loss, which must be finite; each export loaded and
+   decoded for 16 frames, its WAV checked. Step ``recovery`` runs inside
+   phase 7 on its snapshot, loaded with QWEN3_TTS_COMPUTE=bf16:
+   ``--mtp-fps 2 --mtp-cp-batch --freeze-base``, 4 steps; every leaf
+   outside ``mtp`` of the export bit-equal to the loaded tree's, the
+   grafted MTP linears moved, 16 frames decoded at fps 2.
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -184,6 +205,13 @@ REPRESENTATIVE = (1, 6144, 2048)  # (M, N, K) reported in the kernels line
 TALKER_FRAME = {(2048, 2048): 56, (1024, 2048): 56, (6144, 2048): 56,
                 (2048, 6144): 28, (2051, 2048): 1}
 MAIN_FRAMES = 64  # frames of the measured main-path run
+# cuts for the 400 s budget (phase train added ~40 s): the imported
+# snapshot's main path repeats flagship_feedback_code2wav's geometry, the
+# asr quality step is not gated, and run_batch needs no eight items to show
+# its framing
+IMPORT_FRAMES = 32
+QUALITY_FRAMES = 24
+BATCH_ITEMS = 4
 
 
 def fail(msg: str) -> None:
@@ -429,6 +457,7 @@ def main() -> None:
     server_counts, server_ran = phase_server(torch, serving_rtf, asr)
     del asr
     asr_snapshot.cleanup()
+    phase_train(torch)
     for run_shapes in (mtp_ran, ran, server_ran):
         for name, run in run_shapes.items():
             shapes.setdefault(name, set()).update(run)
@@ -446,6 +475,7 @@ def main() -> None:
     if args.profile:
         for label in ("synthetic:flagship", "flagship_feedback_code2wav"):
             phase_profile(torch, label)
+        phase_profile_train(torch)
 
     replaces = {
         "grouped_qmv": "src/qwen3_tts_tpu/ops/grouped_qmv.py:160",
@@ -929,7 +959,9 @@ def phase_profile(torch, label: str) -> None:
 
 
 GB = 1e9
-IMPORT_DISK_NEED = 7 * GB  # the ~3 GB snapshot and its ~3.2 GB native cache
+# the ~3 GB snapshot, its ~3.2 GB native cache and the ~3.8 GB dense
+# export of step train/recovery
+IMPORT_DISK_NEED = 11 * GB
 
 
 def _same_tree(torch, a, b) -> bool:
@@ -1030,10 +1062,11 @@ def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
         torch.cuda.empty_cache()
         counts, shapes, run = phase_main_path(
             torch, "import:flagship_feedback_code2wav", "grouped",
-            "grouped_qmv", MAIN_FRAMES, model=model)
+            "grouped_qmv", IMPORT_FRAMES, model=model)
         del model
         for name, ran in phase_clone(torch, snap, feedback_rtf).items():
             shapes.setdefault(name, set()).update(ran)
+        phase_train_recovery(torch, snap)
         return counts, shapes, run["rtf"]
 
 
@@ -1749,18 +1782,19 @@ def phase_asr(torch):
 
 def phase_quality(torch, model, asr) -> None:
     """One compare_decode_configs step: the int8 KV cache against the
-    dense one on ``model`` (the feedback flagship), one text of 64 frames,
-    the turbo Whisper transcribing (not gated: the weights are random)."""
+    dense one on ``model`` (the feedback flagship), one text of
+    QUALITY_FRAMES frames, the turbo Whisper transcribing (not gated: the
+    weights are random)."""
     from qwen3_tts_tpu_torch import quality
 
     t0 = time.perf_counter()
     rep = quality.compare_decode_configs(
         model, {"kv8": {"kv": "int8"}}, [SERVING_TEXTS[0]], asr.transcribe_wav,
-        voice="ryan", max_frames=SERVING_FRAMES)
+        voice="ryan", max_frames=QUALITY_FRAMES)
     v = rep["variants"]["kv8"]
     row = v["rows"][0]
     log({"phase": "asr", "step": "quality", "variant": "kv=int8",
-         "frames_budget": SERVING_FRAMES, "wall_s": time.perf_counter() - t0,
+         "frames_budget": QUALITY_FRAMES, "wall_s": time.perf_counter() - t0,
          "median_mel_dist": v["median_mel_dist"],
          "median_identical_frac": v["median_identical_frac"],
          "median_wer_delta": v["median_wer_delta"],
@@ -2042,7 +2076,8 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
             fail("server: kernel A never launched")
         items = [{"id": f"item{i}", "text": t, "voice": v,
                   "max_seconds": 24 / cfg.codec.frame_rate}
-                 for i, (t, v) in enumerate(zip(SERVING_TEXTS, voices))]
+                 for i, (t, v) in enumerate(zip(SERVING_TEXTS[:BATCH_ITEMS],
+                                                voices))]
         with tempfile.TemporaryDirectory() as out:
             summary = batch.run_batch(service, items, out)
         log({"phase": "server", "step": "batch", **{
@@ -2056,6 +2091,428 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
     return counts, shapes
+
+
+
+# phase train: fine-tuning on the card (training/, finetune.py). Training is
+# dense (torch.matmul), so neither kernel runs in it.
+
+TRAIN_LR = 1e-2           # step reference: the optimizer's learning rate
+# card vs CPU at float32, step reference: the first step starts from equal
+# trees (losses and grad norm within TRAIN_RTOL); Adam divides each
+# component by its own RMS, so a component whose gradient is near zero can
+# turn an ulp-level gradient difference into a visible share of one
+# lr-sized step: every parameter element within TRAIN_STEP_TOL * lr, and
+# the later steps' metrics, computed on those trees, within 1e-3
+TRAIN_RTOL = 1e-4
+TRAIN_LATER_RTOL = 1e-3
+TRAIN_STEP_TOL = 0.1
+TRAIN_STEPS = 6           # steps full and lora (recovery: 4)
+TRAIN_PAIRS = 8
+
+
+def _train_reference_cases(configs) -> dict:
+    import dataclasses
+
+    def f32(c):
+        return dataclasses.replace(c, dtype="float32")
+
+    return {
+        "cb0": (f32(configs.tiny()), {}),
+        "residual_sum": (f32(configs.tiny_feedback()), {}),
+        "fps2_cpb": (f32(configs.tiny_feedback(frames_per_step=2,
+                                               mtp_cp_batch=True)), {}),
+        "dg3_draft": (f32(configs.tiny_feedback(depth_group=3)),
+                      {"draft": True}),
+        "lora_r4": (f32(configs.tiny()), {"lora": 4}),
+    }
+
+
+def _train_run(cfg, opts: dict, device: str, resume_dir=None):
+    """Three default_optimizer steps on one synthetic batch (ragged text,
+    speakers on alternate rows) from the numpy initialisers' trees on
+    ``device``; with ``resume_dir``, saved after two steps and restored
+    into fresh trees for the third. Returns each step's metrics and the
+    trained leaves after each step (on the host)."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine.weights import tree_to
+    from qwen3_tts_tpu_torch.models.code_predictor import init_code_predictor
+    from qwen3_tts_tpu_torch.models.talker import init_talker
+    from qwen3_tts_tpu_torch.training import (
+        add_lora,
+        default_optimizer,
+        init_lora_train_state,
+        init_train_state,
+        make_lora_train_step,
+        make_train_step,
+        split_lora,
+    )
+    from qwen3_tts_tpu_torch.training.checkpoint import (
+        restore_train_state,
+        save_train_state,
+    )
+    from qwen3_tts_tpu_torch.training.train import synthetic_batch, tree_leaves
+
+    batch = synthetic_batch(cfg, 4, 8, 6, seed=0)
+    batch["text_mask"][1, 5:] = False
+    batch["text_mask"][3, 4:] = False
+    opt = default_optimizer(lr=TRAIN_LR)
+    if opts.get("draft"):
+        opt = dataclasses.replace(opt, trainable=(("mtp",), ("draft",)))
+
+    def fresh(seed):
+        """The trees drawn from ``seed``; a LoRA run keeps its base (seed 0:
+        a checkpoint holds the adapters only) and draws its adapters from
+        ``seed``."""
+        base_seed = 0 if opts.get("lora") else seed
+        p = tree_to(init_talker(cfg, base_seed), device)
+        cp = tree_to(init_code_predictor(cfg, base_seed + 1), device)
+        if opts.get("draft"):
+            cp = {**cp, "draft": tree_to(init_code_predictor(cfg, seed + 7),
+                                         device)}
+        if opts.get("lora"):
+            lora, base = split_lora(add_lora(p, rank=opts["lora"], seed=seed))
+            state = init_lora_train_state(lora, opt)
+            step = make_lora_train_step(cfg, opt)
+            return state, (lambda s: step(s, base, cp, batch)), \
+                (lambda s: s.lora)
+        state = init_train_state(p, cp, opt)
+        step = make_train_step(cfg, opt)
+        return state, (lambda s: step(s, batch)), \
+            (lambda s: [s.params, s.cp_params])
+
+    state, run, trees = fresh(0)
+    metrics, leaves = [], []
+    for i in range(3):
+        if resume_dir is not None and i == 2:
+            path = save_train_state(state, resume_dir)
+            state, run, trees = fresh(5)
+            state = restore_train_state(path, state)
+        state, m = run(state)
+        metrics.append({k: float(v) for k, v in m.items()})
+        leaves.append({k: v.detach().cpu().clone()
+                       for k, v in tree_leaves(trees(state))})
+    return metrics, leaves
+
+
+def _train_compare(label: str, got, want) -> dict:
+    """Card run ``got`` against ``want``: per-step metrics and leaves."""
+    (gm, gl), (wm, wl) = got, want
+    worst = {}
+    for i in range(3):
+        rtol = TRAIN_RTOL if i == 0 else TRAIN_LATER_RTOL
+        for k, v in wm[i].items():
+            if abs(gm[i][k] - v) > rtol * abs(v):
+                fail(f"train {label}: step {i + 1} {k} {gm[i][k]} vs {v}")
+        if gl[i].keys() != wl[i].keys():
+            fail(f"train {label}: the trees differ in structure")
+        for k, v in wl[i].items():
+            worst[k] = max(worst.get(k, 0.0),
+                           float((gl[i][k] - v).abs().max()))
+    name, err = max(worst.items(), key=lambda kv: kv[1])
+    if err > TRAIN_STEP_TOL * TRAIN_LR:
+        fail(f"train {label}: leaf {name} off by {err} "
+             f"(bound {TRAIN_STEP_TOL * TRAIN_LR})")
+    bit_equal = all(_equal(gs[k], ws[k]) for gs, ws in zip(gl, wl)
+                    for k in ws)
+    return {"max_leaf_err": err, "worst_leaf": name,
+            "leaf_bound": TRAIN_STEP_TOL * TRAIN_LR, "bit_equal": bit_equal,
+            "losses": [m["loss"] for m in gm],
+            "grad_norms": [m["grad_norm"] for m in gm]}
+
+
+def _equal(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def phase_train_reference(torch) -> None:
+    """Step ``reference``: each tiny float32 case on the card against the
+    CPU, then save/resume on the card against the uninterrupted card run."""
+    from qwen3_tts_tpu_torch.engine import configs
+
+    cases = _train_reference_cases(configs)
+    card_runs = {}
+    threads = torch.get_num_threads()
+    for label, (cfg, opts) in cases.items():
+        t0 = time.perf_counter()
+        card_runs[label] = _train_run(cfg, opts, "cuda")
+        # tiny CPU runs are op-overhead bound: one thread is ~70x faster
+        # than a pool that spins between the small ops
+        torch.set_num_threads(1)
+        try:
+            cpu_run = _train_run(cfg, opts, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+        row = _train_compare(label, card_runs[label], cpu_run)
+        log({"phase": "train", "step": "reference", "case": label,
+             "dtype": "float32", "steps": 3, "lr": TRAIN_LR,
+             "loss_rtol": TRAIN_RTOL, **row,
+             "wall_s": time.perf_counter() - t0})
+    for label in ("cb0", "lora_r4"):
+        cfg, opts = cases[label]
+        with tempfile.TemporaryDirectory(prefix="q3tts_ckpt_") as ckpt:
+            resumed = _train_run(cfg, opts, "cuda", resume_dir=ckpt)
+        row = _train_compare(f"{label} resume", resumed, card_runs[label])
+        log({"phase": "train", "step": "resume", "case": label,
+             "saved_after": 2, "steps": 3, **row})
+
+
+def write_train_pairs(d: str, n: int = TRAIN_PAIRS, seed: int = 0) -> None:
+    """``n`` <name>.wav + <name>.txt pairs: seeded 2-4 s voiced clips at
+    24 kHz (a harmonic tone at a random pitch, a slow vibrato, a little
+    noise), each with a SERVING_TEXTS sentence."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    sr = 24000
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        t = np.arange(int(rng.uniform(2.0, 4.0) * sr)) / sr
+        f0 = rng.uniform(100.0, 240.0) * (1 + 0.03 * np.sin(2 * np.pi * 4 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wav = sum(np.sin(h * phase) / h for h in range(1, 6)) * 0.12
+        wav += 0.01 * rng.standard_normal(len(t))
+        write_wav(os.path.join(d, f"pair{i}.wav"), wav.astype(np.float32), sr)
+        with open(os.path.join(d, f"pair{i}.txt"), "w") as f:
+            f.write(SERVING_TEXTS[i % len(SERVING_TEXTS)] + "\n")
+
+
+def _finetune(torch, argv: list) -> dict:
+    """finetune.main(argv) on the card with QWEN3_TTS_METRICS on: its
+    summary, s/step (median of the steps after the first), trained
+    frames/s over those steps, peak memory (from a reset just before)."""
+    import contextlib
+    import gc
+    import io
+
+    from qwen3_tts_tpu_torch import finetune
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    os.environ["QWEN3_TTS_METRICS"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = finetune.main(argv)
+    finally:
+        os.environ.pop("QWEN3_TTS_METRICS")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        fail(f"finetune {argv}: exit {rc}: {err.getvalue()[-3000:]}")
+    steps = [json.loads(ln) for ln in err.getvalue().splitlines()
+             if '"finetune_step"' in ln]
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    later = steps[1:]
+    losses = (summary["first_loss"], summary["final_loss"])
+    if len(steps) != int(argv[argv.index("--steps") + 1]) or not all(
+            math.isfinite(x) for x in losses):
+        fail(f"finetune {argv}: {len(steps)} step lines, losses {losses}")
+    return {"steps": len(steps), "batch_size": int(
+                argv[argv.index("--batch-size") + 1]),
+            "s_per_step": statistics.median(s["step_s"] for s in later),
+            "first_step_s": steps[0]["step_s"],
+            "frames_per_step": [s["frames"] for s in steps],
+            "trained_frames_per_s": sum(s["frames"] for s in later)
+            / sum(s["step_s"] for s in later),
+            "peak_mem_gb": peak / 1e9,
+            "resident_gb": steps[-1].get("allocated_gb"),
+            "first_loss": losses[0], "final_loss": losses[1],
+            "losses": [s["loss"] for s in steps],
+            "grad_norms": [s["grad_norm"] for s in steps],
+            "finetune_wall_s": wall}
+
+
+def phase_profile_train(torch) -> None:
+    """Where a full fine-tune step's time goes: the dense flagship, one
+    synthetic batch of 4 (64 text tokens, 48 frames), two warm steps, three
+    timed, three under torch.profiler; the card's busy share is the
+    profiled kernels' device time over the timed steps' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.training import (
+        default_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+    from qwen3_tts_tpu_torch.training.train import synthetic_batch
+
+    cfg = configs.with_quant(configs.flagship(), False)
+    model = Qwen3TTSModel.synthetic(cfg, device="cuda")
+    opt = default_optimizer()
+    state = init_train_state(model.params, model.cp_params, opt)
+    step = make_train_step(cfg, opt)
+    batch = synthetic_batch(cfg, 4, 64, 48, seed=0)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    # the optimizer's record_function range is a device-typed event too:
+    # counted, it would add its kernels' time a second time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6 / 3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    log({"phase": "profile", "model": "train:synthetic", "batch": [4, 64, 48],
+         "s_per_step": wall,
+         "device_s_per_step": device_s if kernels else "not measured",
+         "device_busy_share": device_s / wall if kernels else "not measured",
+         "kernel_launches_per_step": sum(e.count for e in kernels) / 3,
+         "top_kernels": [{"name": e.key[:80], "count": e.count / 3,
+                          "device_ms": e.self_device_time_total / 3e3}
+                         for e in top[:12]]})
+    del state, step, model
+    torch.cuda.empty_cache()
+
+
+def _decode_export(torch, path: str, where: str, frames: int = 16) -> dict:
+    """load_model(path) on the card and one generate_audio of ``frames``
+    frames, its WAV checked as the main paths' are."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import generate_audio, load_model
+
+    t0 = time.perf_counter()
+    model = load_model(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = model.cfg
+    with tempfile.TemporaryDirectory() as out:
+        m = generate_audio(model=model, text=TEXT, voice=cfg.speakers[0],
+                           output_path=out, max_frames=frames, seed=0)
+        with wave.open(os.path.join(out, "audio_000.wav"), "rb") as w:
+            fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+            n = w.getnframes()
+            pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    skip = cfg.code2wav.startup_samples if cfg.codec_arch == "code2wav" else 0
+    if fmt != (1, 2, 24000) or m["frames"] < 1 \
+            or n != m["frames"] * cfg.codec.hop - skip or not pcm.any():
+        fail(f"{where}: wav {fmt}, {n} samples for {m['frames']} frames, "
+             "or silent")
+    del model
+    torch.cuda.empty_cache()
+    return {"export_load_s": load_s, "decoded_frames": m["frames"],
+            "decode_wall_s": m["wall_s"],
+            "export_fps": cfg.talker.frames_per_step,
+            "export_quant": cfg.quant.enabled}
+
+
+def _launches() -> dict:
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    return {k.name: k.launches for k in cuda_kernels.KERNELS}
+
+
+def _check_no_launches(where: str, counts: dict) -> None:
+    if any(counts.values()):
+        fail(f"{where}: training is dense, yet kernels launched: {counts}")
+
+
+def phase_train(torch) -> None:
+    """Steps ``reference``, then ``full`` and ``lora``: finetune.main on the
+    dense flagship over TRAIN_PAIRS seeded clips, each export decoded."""
+    import shutil
+
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    cuda_kernels.reset_launch_counts()
+    phase_train_reference(torch)
+    with tempfile.TemporaryDirectory(prefix="q3tts_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        write_train_pairs(data)
+        for step, extra in (("full", []), ("lora", ["--lora", "8"])):
+            export = os.path.join(tmp, step)
+            t0 = time.perf_counter()
+            row = _finetune(torch, ["--model", "synthetic", "--data", data,
+                                    "--steps", str(TRAIN_STEPS),
+                                    "--batch-size", "4", "--export", export]
+                            + extra)
+            row.update(_decode_export(torch, export, f"train {step}"))
+            shutil.rmtree(export)
+            log({"phase": "train", "step": step, "model": "synthetic",
+                 "config": "flagship, dense bf16", **row,
+                 "launches": _launches(),
+                 "step_wall_s": time.perf_counter() - t0})
+    _check_no_launches("train", _launches())
+
+
+def phase_train_recovery(torch, snap: str) -> None:
+    """Step ``recovery`` (phase 7's snapshot, QWEN3_TTS_COMPUTE=bf16):
+    freeze-base MTP recovery at fps 2 with the batched-cp chain, 4 steps;
+    the export's leaves outside ``mtp`` bit-equal to the loaded tree's,
+    the grafted MTP linears moved, 16 frames decoded at fps 2."""
+    from qwen3_tts_tpu_torch.engine import configs, load_model
+    from qwen3_tts_tpu_torch.models.talker import add_mtp_params
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.training.train import tree_leaves
+
+    cuda_kernels.reset_launch_counts()
+    os.environ["QWEN3_TTS_COMPUTE"] = "bf16"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="q3tts_recovery_") as tmp:
+            data = os.path.join(tmp, "data")
+            write_train_pairs(data)
+            export = os.path.join(tmp, "export")
+            row = _finetune(torch, [
+                "--model", snap, "--data", data, "--mtp-fps", "2",
+                "--mtp-cp-batch", "--freeze-base", "--steps", "4",
+                "--batch-size", "4", "--export", export])
+            base = load_model(snap, device="cuda")
+            tuned = load_model(export, device="cuda")
+            loaded = dict(tree_leaves(
+                [base.params, base.cp_params, base.codec_params]))
+            moved = [k for k, v in tree_leaves(
+                [tuned.params, tuned.cp_params, tuned.codec_params])
+                if "mtp" not in k and not _equal(v, loaded[k])]
+            if moved:
+                fail(f"train recovery: frozen leaves moved: {moved[:5]}")
+            if tuned.cfg.talker.frames_per_step != 2 \
+                    or not tuned.cfg.talker.mtp_cp_batch:
+                fail(f"train recovery: export talker config {tuned.cfg.talker}")
+            grafted = add_mtp_params(
+                base.params, configs.with_frames_per_step(base.cfg, 2),
+                seed=0)["mtp"]
+            trained = dict(tree_leaves(tuned.params["mtp"]))
+            still = [k for k, v in tree_leaves(grafted)
+                     if k.endswith("/w") and _equal(v, trained[k].cpu())]
+            if still:
+                fail(f"train recovery: MTP linears never moved: {still}")
+            n_frozen = sum(v.numel() for k, v in tree_leaves(
+                [tuned.params, tuned.cp_params]) if "mtp" not in k)
+            del base, tuned
+            torch.cuda.empty_cache()
+            row.update(_decode_export(torch, export, "train recovery"))
+    finally:
+        os.environ.pop("QWEN3_TTS_COMPUTE")
+    counts = _launches()
+    log({"phase": "train", "step": "recovery",
+         "model": "import:flagship_feedback_code2wav", "compute": "bf16",
+         "flags": "--mtp-fps 2 --mtp-cp-batch --freeze-base", **row,
+         "frozen_params_bit_equal": n_frozen, "launches": counts,
+         "step_wall_s": time.perf_counter() - t0})
+    _check_no_launches("train recovery", counts)
 
 
 if __name__ == "__main__":

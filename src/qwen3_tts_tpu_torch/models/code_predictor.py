@@ -123,13 +123,18 @@ def predict_residuals(
     n_groups = n_res // k
     depth_len = n_groups + (2 if hidden_token else 1)
 
+    # the draft adapter (finetune.py --freeze-base): a grafted ``draft``
+    # copy of the module is what the GROUPED computation reads, so the
+    # primary tree (sequential decode, the spec verifier, the residual
+    # feedback sum) stays the raw import's while the draft trains
+    dp = params["draft"] if (k > 1 and "draft" in params) else params
     cos_t, sin_t = rope_tables(depth_len, cp.head_dim, cp.rope_theta, dev)
-    layers = unstack_layers(params["blocks"])
+    layers = unstack_layers(dp["blocks"])
 
     hid = talker_hidden[:, None, :]
     if cp.input_proj:
-        hid = linear(hid, params["in_proj"])                       # [B,1,H]
-    cb0 = params["cb0_emb"][cb0_tokens][:, None, :]
+        hid = linear(hid, dp["in_proj"])                           # [B,1,H]
+    cb0 = dp["cb0_emb"][cb0_tokens][:, None, :]
     if hidden_token:
         x0 = torch.cat([hid, cb0.to(hid.dtype)], dim=1)            # [B,2,H]
     else:
@@ -149,7 +154,7 @@ def predict_residuals(
                 n_kv_heads=cp.n_heads, head_dim=cp.head_dim,
                 rms_eps=cp.rms_eps, qk_norm=cp.qk_norm,
             )
-        return rmsnorm(x, params["ln_f"], cp.rms_eps)
+        return rmsnorm(x, dp["ln_f"], cp.rms_eps)
 
     if stochastic:
         from ..runtime.sampling import filtered_logits, sample_token
@@ -159,7 +164,7 @@ def predict_residuals(
 
     def score_group(h_last, g: int):
         """Group g's k residual codes from one hidden [B, H] -> [B, k]."""
-        heads = params["heads"][g * k:(g + 1) * k]                  # [k, V, H]
+        heads = dp["heads"][g * k:(g + 1) * k]                      # [k, V, H]
         logits = torch.einsum("bd,kvd->bkv", h_last.float(), heads.float())
         cols = []
         for j in range(k):
@@ -174,7 +179,7 @@ def predict_residuals(
 
     def next_input(codes_g, g: int):
         """Summed embedding of group g's codes ([B, k] -> [B, 1, H])."""
-        embs = torch.stack([params["res_emb"][g * k + j][codes_g[:, j]]
+        embs = torch.stack([dp["res_emb"][g * k + j][codes_g[:, j]]
                             for j in range(k)])
         return embs.sum(dim=0)[:, None, :].to(x0.dtype)
 

@@ -186,8 +186,10 @@ def make_init(seed: int, dtype: torch.dtype, device=None):
 
 
 def stack_trees(trees: list):
-    """Stack a list of identical param trees along a new leading axis."""
+    """Stack a list of identical param trees along a new leading axis, dict
+    keys in sorted order (``jax.tree.map``'s order, so a tree walk visits
+    the leaves in the JAX package's order: training.lora.add_lora draws)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees]) for k in sorted(first)}
     return torch.stack(trees, dim=0)

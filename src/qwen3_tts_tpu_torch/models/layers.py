@@ -342,19 +342,28 @@ def fuse_block_projections(blocks: dict) -> dict:
 
 def unstack_layers(blocks) -> list[dict]:
     """Stacked block params ``[L, ...]`` -> a list of per-layer param dicts
-    (views). A list passes through."""
+    (views, one ``unbind`` a leaf: under autograd its backward stacks the
+    layers' gradients into the stacked leaf once, where indexing would add
+    a zero-filled stack-sized gradient per layer). A list passes through."""
     if isinstance(blocks, list):
         return blocks
 
-    def first_leaf(node):
-        return first_leaf(next(iter(node.values()))) if isinstance(node, dict) else node
+    def unbind(node):
+        if isinstance(node, dict):
+            return {k: unbind(v) for k, v in node.items()}
+        return node.unbind(0)
 
     def index(node, i):
         if isinstance(node, dict):
             return {k: index(v, i) for k, v in node.items()}
         return node[i]
 
-    return [index(blocks, i) for i in range(first_leaf(blocks).shape[0])]
+    def n_layers(node):
+        return n_layers(next(iter(node.values()))) if isinstance(node, dict) \
+            else len(node)
+
+    per_leaf = unbind(blocks)
+    return [index(per_leaf, i) for i in range(n_layers(per_leaf))]
 
 
 def transformer_block(

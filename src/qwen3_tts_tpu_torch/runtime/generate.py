@@ -99,6 +99,11 @@ def fuse_decode_params(cp_params: Any, codec_params: Any) -> tuple[Any, Any]:
     if fusable(cp_params.get("blocks")):
         cp_params = {**cp_params,
                      "blocks": fuse_block_projections(cp_params["blocks"])}
+    draft = cp_params.get("draft")
+    if draft is not None and fusable(draft.get("blocks")):
+        # freeze-base recovery's draft adapter runs the same decode path
+        cp_params = {**cp_params, "draft": {
+            **draft, "blocks": fuse_block_projections(draft["blocks"])}}
     dec = codec_params.get("dec", {})
     if fusable(dec.get("tf_blocks")):
         codec_params = {**codec_params, "dec": {
@@ -485,6 +490,10 @@ class Generator:
                        "blocks": unstack_layers(self.params["blocks"])}
         self.cp_params = {**self.cp_params,
                           "blocks": unstack_layers(self.cp_params["blocks"])}
+        if "draft" in self.cp_params:
+            draft = self.cp_params["draft"]
+            self.cp_params["draft"] = {
+                **draft, "blocks": unstack_layers(draft["blocks"])}
         if "dec" in self.codec_params:       # rvq codec
             dec = self.codec_params["dec"]
             self.codec_params = {**self.codec_params, "dec": {

@@ -162,16 +162,28 @@ def _with_fps(cfg, fps: int):
         cfg, talker=dataclasses.replace(cfg.talker, frames_per_step=fps))
 
 
+def _train_step(**kw):
+    from qwen3_tts_tpu_torch.training import default_optimizer, make_train_step
+
+    return make_train_step(tcfgs.tiny(), default_optimizer(), **kw)
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda m, d: tapi.Qwen3TTSModel.synthetic(
         _with_fps(tcfgs.tiny_feedback(), 2), device="cpu"), "9"),
-], ids=["residual_sum_mtp"])
+    (lambda m, d: _train_step(sequence_parallel=True), "15"),
+    (lambda m, d: _train_step(mesh={"dp": 1, "tp": 1, "pp": 2}), "15"),
+], ids=["residual_sum_mtp", "sequence_parallel", "pipeline_mesh"])
 def test_unported_features_raise_with_their_roadmap_item(call, item, temp_dir):
-    """Named for what it pinned while item 9 (MTP) was unported: building
-    a residual_sum model at two frames a step raised naming the item. The
-    model now builds with its MTP heads and generate_audio writes its WAV;
-    no NotImplementedError in the port's source names the item any more
-    (what it still names: 13b, the terminal app)."""
+    """Item 15 (training across devices: sequence parallelism, a pipeline
+    mesh) raises naming the item. Item 9 (MTP) raised so until it was
+    ported: building a residual_sum model at two frames a step now gives
+    a model with its MTP heads whose generate_audio writes its WAV, and no
+    NotImplementedError in the port's source names the item any more."""
+    if item == "15":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+            call(None, temp_dir)
+        return
     model = call(tapi.load_model("synthetic:tiny", device="cpu"), temp_dir)
     assert model.cfg.talker.frames_per_step == 2 and "mtp" in model.params
     m = tapi.generate_audio(model=model, text=TEXT, voice="ryan",
