@@ -144,7 +144,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    phase 7 on its snapshot, loaded with QWEN3_TTS_COMPUTE=bf16:
    ``--mtp-fps 2 --mtp-cp-batch --freeze-base``, 4 steps; every leaf
    outside ``mtp`` of the export bit-equal to the loaded tree's, the
-   grafted MTP linears moved, 16 frames decoded at fps 2.
+   grafted MTP linears moved, 16 frames decoded at fps 2;
+16. phase ``app`` (the terminal app: sessions/, io.py, voices.py, ui.py,
+   and native/, the C++ audio library), after phase ``clone`` and train's
+   ``recovery`` step. Step
+   ``native``: the library built with the host's C++ compiler into
+   build/native/ (no compiler or a failed compile fails), f32 <-> i16,
+   downmix and peak bit-equal to their numpy versions, the resampler's
+   identity, lengths, a 1 kHz tone's energy (> 0.99) and 20 kHz down
+   > 34 dB, and a 10 s 44.1 kHz stereo -> 24 kHz conversion timed native
+   vs numpy + scipy on the host. Steps ``custom``, ``design`` and
+   ``clone``: the real run_custom_session (speaker 1, Sad, x1.3),
+   run_design_session and run_clone_manager (enroll a voice from a
+   44.1 kHz stereo WAV, then clone from the saved voice) on scripted
+   input, each model synthetic:flagship-code2wav:<mode> drawn on the
+   card, the sleep and screen clear stubbed, AUTO_PLAY off, the output,
+   voice and model directories in a temp directory and a recording
+   console in each module; each fails unless exactly one mono 16-bit
+   24 kHz WAV, finite and not silent, is saved, the console holds no
+   error line and kernel A launched (load, session and generate seconds,
+   frames, RTF from the WAV's length, peak memory, kernel A launches a
+   frame).
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -450,6 +470,7 @@ def main() -> None:
     checked_f32: dict = {}
     phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
     launches, shapes, runs = phase_main_paths(torch)
+    app_counts, app_ran = phase_app(torch)
     mtp_counts, mtp_ran = phase_mtp(torch, runs["flagship_feedback_code2wav"])
     counts, ran, serving_rtf = phase_serving(
         torch, runs["flagship_feedback_code2wav"]["rtf"])
@@ -458,11 +479,11 @@ def main() -> None:
     del asr
     asr_snapshot.cleanup()
     phase_train(torch)
-    for run_shapes in (mtp_ran, ran, server_ran):
+    for run_shapes in (app_ran, mtp_ran, ran, server_ran):
         for name, run in run_shapes.items():
             shapes.setdefault(name, set()).update(run)
-    launches = {name: launches[name] + mtp_counts[name] + counts[name]
-                + server_counts[name] for name in launches}
+    launches = {name: launches[name] + app_counts[name] + mtp_counts[name]
+                + counts[name] + server_counts[name] for name in launches}
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -1196,6 +1217,308 @@ def phase_clone(torch, snap: str, feedback_rtf: float) -> dict:
     torch.cuda.empty_cache()
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
     return shapes
+
+
+# phase app: the terminal app's sessions (sessions/*, io, voices, ui) and
+# the native audio library (native/) on the card's host
+
+APP_MODEL = "synthetic:flagship-code2wav"  # + :custom, :design or :base
+APP_TEXT = "Hello from the app."   # 19 chars: a 48-frame budget at 12 Hz
+APP_VOICE = "App Voice!"           # enrolled as App_Voice
+APP_REF_RATE = 44_100              # the enrolled reference: stereo 44.1 kHz
+APP_ERRORS = ("Generation failed", "Failed to load", "No audio was generated",
+              "Could not convert")
+NATIVE_CONVERT_S = 10.0            # the timed conversion's length
+
+
+class _Recorder:
+    """A console stand-in (the GPU machine has no rich): every printed
+    line, and status() as a no-op."""
+
+    def __init__(self):
+        self.lines = []
+
+    def print(self, *objects, **kwargs):
+        self.lines.append(" ".join(str(o) for o in objects))
+
+    def status(self, *args, **kwargs):
+        import contextlib
+
+        return contextlib.nullcontext()
+
+
+class _Script:
+    """Scripted answers for every line prompt and menu of a session; an
+    exhausted script is Ctrl-D."""
+
+    def __init__(self, lines):
+        self.lines = list(lines)
+
+    def __call__(self, *args, **kwargs):
+        if not self.lines:
+            raise EOFError
+        return self.lines.pop(0)
+
+
+def _stereo_reference(path: str, seconds: float, seed: int = 5) -> None:
+    """reference_clip at APP_REF_RATE in two channels (the right one
+    quieter), 16-bit."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.audio import write_wav
+
+    left = reference_clip(seconds, APP_REF_RATE, seed)
+    write_wav(path, np.stack([left, 0.6 * left], axis=1), APP_REF_RATE)
+
+
+def phase_app_native() -> dict:
+    """Step ``native``: build the native library with the host compiler
+    (failing if there is none or the compile fails), hold f32 <-> i16,
+    downmix and peak bit-equal to the numpy versions, the resampler to its
+    properties (identity, length, a 1 kHz tone's energy > 0.99, 20 kHz
+    down > 34 dB at 48 -> 24 kHz), and time a NATIVE_CONVERT_S 44.1 kHz
+    stereo -> 24 kHz mono conversion, native vs numpy + scipy (host
+    times)."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch import native
+    from qwen3_tts_tpu_torch.audio import resample, to_mono
+    from qwen3_tts_tpu_torch.native import build
+
+    os.environ.pop("QWEN3_TTS_NATIVE", None)
+    t0 = time.perf_counter()
+    lib = build.ensure_built()
+    build_s = time.perf_counter() - t0
+    if lib is None or not native.native_available():
+        fail("app native: no C++ compiler on the host, the library is not "
+             "built")
+    rng = np.random.default_rng(11)
+    x = (0.7 * rng.standard_normal(48_000)).astype(np.float32)
+    x[:6] = (2.0, -2.0, 1.0, -1.0, 0.5 / 32767, -1.5 / 32767)
+    stereo = (0.4 * rng.standard_normal((48_000, 2))).astype(np.float32)
+    pcm = rng.integers(-32768, 32768, 48_000, dtype=np.int16)
+    cases = {"f32_to_i16": (x,), "i16_to_f32": (pcm,),
+             "downmix_mono": (stereo,), "peak": (x,)}
+    got = {k: getattr(native, k)(*a) for k, a in cases.items()}
+    os.environ["QWEN3_TTS_NATIVE"] = "never"
+    try:
+        want = {k: getattr(native, k)(*a) for k, a in cases.items()}
+    finally:
+        os.environ.pop("QWEN3_TTS_NATIVE")
+    for k in cases:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            fail(f"app native: {k} differs from its numpy version")
+
+    def sine(freq, rate, seconds=0.5):
+        return np.sin(2 * np.pi * freq * np.arange(int(rate * seconds))
+                      / rate).astype(np.float32)
+
+    tone_share = {}
+    if not np.array_equal(native.resample_native(x, 24_000, 24_000), x):
+        fail("app native: resampling 24 -> 24 kHz is not the identity")
+    for src in (48_000, 16_000, 44_100):
+        s = sine(1000.0, src)
+        y = native.resample_native(s, src, 24_000)
+        if abs(len(y) - math.ceil(len(s) * 24_000 / src)) > 1:
+            fail(f"app native: {src} -> 24 kHz gave {len(y)} samples")
+        t = np.arange(len(y)) / 24_000
+        body = slice(len(y) // 8, -len(y) // 8)
+        c, q = (f(2 * np.pi * 1000.0 * t)[body] for f in (np.sin, np.cos))
+        yb = y[body].astype(np.float64)
+        share = (np.dot(yb, c) ** 2 / np.dot(c, c)
+                 + np.dot(yb, q) ** 2 / np.dot(q, q)) / np.sum(yb * yb)
+        tone_share[src] = share
+        if share <= 0.99:
+            fail(f"app native: a 1 kHz tone at {src} Hz keeps {share} of "
+                 "its energy")
+    hi = sine(20_000.0, 48_000)
+    y = native.resample_native(hi, 48_000, 24_000)
+    body = y[len(y) // 8: -len(y) // 8].astype(np.float64)
+    atten_db = 20 * math.log10(np.sqrt(np.mean(hi.astype(np.float64) ** 2))
+                               / max(np.sqrt(np.mean(body ** 2)), 1e-30))
+    if atten_db <= 34:
+        fail(f"app native: 20 kHz attenuated {atten_db:.1f} dB")
+
+    long = (0.3 * rng.standard_normal(
+        (int(NATIVE_CONVERT_S * APP_REF_RATE), 2))).astype(np.float32)
+
+    def convert():
+        return resample(to_mono(long), APP_REF_RATE, 24_000)
+
+    times = {}
+    # one untimed call each (scipy's import, first-touch of the buffers),
+    # then in turns
+    for setting in ("auto", "never", "auto", "never", "never", "auto"):
+        os.environ["QWEN3_TTS_NATIVE"] = setting
+        try:
+            t0 = time.perf_counter()
+            out = convert()
+            times.setdefault(setting, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        finally:
+            os.environ.pop("QWEN3_TTS_NATIVE")
+        if len(out) != int(NATIVE_CONVERT_S * 24_000):
+            fail(f"app native: {setting} conversion gave {len(out)} samples")
+    row = {"phase": "app", "step": "native",
+           "library": str(lib.relative_to(ROOT)),
+           "compiler": build.compiler(), "build_s": build_s,
+           "bit_equal_to_numpy": sorted(cases),
+           "tone_energy_share": tone_share,
+           "attenuation_20khz_db": atten_db,
+           "convert_s": NATIVE_CONVERT_S,
+           "convert_native_ms": times["auto"][1:],
+           "convert_scipy_ms": times["never"][1:],
+           "clock": "host perf_counter"}
+    log(row)
+    return row
+
+
+def _app_session(torch, tmp: str, step: str, lines: list) -> tuple[dict, dict]:
+    """One real session of the port's app (run_custom_session,
+    run_design_session or run_clone_manager) on scripted ``lines``, its
+    model synthetic:flagship-code2wav:<mode> drawn on the card, with the
+    sleep and screen clear stubbed, AUTO_PLAY off, the output, voice and
+    model directories under ``tmp`` and a recording console in every
+    module. Fails unless exactly one valid WAV is saved, the console holds
+    no error line and kernel A launched. Returns launches and shapes."""
+    import contextlib
+    import types
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch import (
+        config, engine, io, transcription, ui, voices,
+    )
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.sessions import clone, custom, design
+
+    mode, session, run = {
+        "custom": ("custom", custom, custom.run_custom_session),
+        "design": ("design", design, design.run_design_session),
+        "clone": ("base", clone, clone.run_clone_manager),
+    }[step]
+    out = os.path.join(tmp, "outputs", step)
+    rec, script = _Recorder(), _Script(lines)
+    timings, metrics = {}, []
+    load_model_with_progress = session.load_model_with_progress
+    generate_audio = engine.generate_audio
+
+    def timed_load(path, name):
+        t0 = time.perf_counter()
+        model = load_model_with_progress(path, name)
+        torch.cuda.synchronize()
+        timings["load_s"] = time.perf_counter() - t0
+        return model
+
+    def timed_generate(**kw):
+        t0 = time.perf_counter()
+        m = generate_audio(**kw)
+        torch.cuda.synchronize()
+        timings["generate_wall_s"] = time.perf_counter() - t0
+        metrics.append(m)
+        return m
+
+    patches = [
+        (io, "BASE_OUTPUT_DIR", out), (config, "BASE_OUTPUT_DIR", out),
+        (io, "MODELS_DIR", os.path.join(tmp, "models")),
+        (config, "MODELS_DIR", os.path.join(tmp, "models")),
+        (voices, "VOICES_DIR", os.path.join(tmp, "voices")),
+        (io, "AUTO_PLAY", False),
+        (io, "time", types.SimpleNamespace(sleep=lambda s: None)),
+        (transcription, "_providers", {}),
+        (session, "ensure_model",
+         lambda spec: f"{APP_MODEL}:{mode}"),
+        (session, "load_model_with_progress", timed_load),
+        (engine, "generate_audio", timed_generate),
+    ]
+    if step == "clone":
+        patches.append((session, "instant_menu_choice", script))
+    for mod in (io, session):
+        patches.append((mod, "clear_screen", lambda: None))
+    for mod in (ui, io, voices, session):
+        patches.append((mod, "console", rec))
+    for mod in (ui, voices, session):
+        patches.append((mod, "safe_line_input", script))
+    os.environ["QWEN3_TTS_INT8_LAYOUT"] = "grouped"
+    with contextlib.ExitStack() as undo:
+        for mod, name, value in patches:
+            undo.callback(setattr, mod, name, getattr(mod, name))
+            setattr(mod, name, value)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
+        shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    errors = [ln for ln in rec.lines if any(e in ln for e in APP_ERRORS)]
+    if errors:
+        fail(f"app {step}: the console reports {errors}")
+    saved = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs]
+    if len(saved) != 1 or not saved[0].endswith(".wav") or len(metrics) != 1:
+        fail(f"app {step}: saved {saved} after {len(metrics)} generations")
+    with wave.open(saved[0], "rb") as w:
+        fmt = (w.getnchannels(), w.getsampwidth(), w.getframerate())
+        n = w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    if fmt != (1, 2, 24000) or n < 1 or not pcm.any() \
+            or not np.isfinite(pcm.astype(np.float64)).all():
+        fail(f"app {step}: wav {fmt}, {n} samples, or silent")
+    frames = metrics[0]["frames"]
+    if counts["grouped_qmv"] == 0 or frames < 1:
+        fail(f"app {step}: kernel A launched {counts['grouped_qmv']} times "
+             f"over {frames} frames")
+    audio_s = n / 24000
+    log({"phase": "app", "step": step,
+         "model": f"{APP_MODEL}:{mode}", "layout": "grouped",
+         "saved": os.path.relpath(saved[0], out), "samples": n,
+         "frames": frames, "audio_s": audio_s, "load_s": timings["load_s"],
+         "session_wall_s": wall,
+         "generate_wall_s": timings["generate_wall_s"],
+         "rtf": audio_s / timings["generate_wall_s"],
+         "peak_mem_gb": peak, "launches": counts,
+         "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / frames,
+         "console_lines": len(rec.lines)})
+    return counts, shapes
+
+
+def phase_app(torch) -> tuple[dict, dict]:
+    """Phase ``app``: step ``native``, then the three sessions of the
+    port's terminal app at the flagship's full width: ``custom`` (speaker
+    1, emotion Sad, speed x1.3, the host stretch), ``design`` (a voice
+    description) and ``clone`` (enroll a voice from a 44.1 kHz stereo WAV:
+    converted by the native downmix and resampler, then clone from the
+    saved voice). Returns kernel launches and shapes summed over them."""
+    from qwen3_tts_tpu_torch.audio import wav_info
+
+    phase_app_native()
+    counts: dict = {}
+    shapes: dict = {}
+    with tempfile.TemporaryDirectory(prefix="q3tts_app_") as tmp:
+        ref = os.path.join(tmp, "reference 44k stereo.wav")
+        _stereo_reference(ref, CLONE_REF_S)
+        scripts = {
+            "custom": ["1", "2", "2", APP_TEXT, ""],
+            "design": ["A warm, deep narrator, slow and calm", APP_TEXT, ""],
+            "clone": ["2", APP_VOICE, f"'{ref}'", CLONE_REF_TEXT, "1", "1",
+                      APP_TEXT, "", "b"],
+        }
+        for step, lines in scripts.items():
+            c, s = _app_session(torch, tmp, step, lines)
+            for name in c:
+                counts[name] = counts.get(name, 0) + c[name]
+                shapes.setdefault(name, set()).update(s[name])
+        enrolled = os.path.join(tmp, "voices", "App_Voice.wav")
+        info = wav_info(enrolled)
+        if (info.sample_rate, info.channels, info.sampwidth) != (24000, 1, 2) \
+                or abs(info.duration_s - CLONE_REF_S) > 0.01:
+            fail(f"app clone: the enrolled voice is {info}")
+    torch.cuda.empty_cache()
+    return counts, shapes
 
 
 def phase_main_paths(torch) -> tuple[dict, dict, dict]:

@@ -1,5 +1,6 @@
-"""Audio I/O for the port: 16-bit PCM WAV reading and writing, the
-downmix and the resampler of a cloning reference."""
+"""Audio I/O for the port: PCM WAV reading and writing, the downmix,
+resampling and format conversion of a reference, and playback."""
 
-from .resample import resample  # noqa: F401
-from .wavio import read_wav, to_mono, write_wav  # noqa: F401
+from .playback import play_wav  # noqa: F401
+from .resample import convert_to_wav, resample  # noqa: F401
+from .wavio import read_wav, to_mono, wav_info, write_wav  # noqa: F401

@@ -1,23 +1,38 @@
 """WAV reading and writing on top of the stdlib ``wave`` module + numpy
-(copied from the JAX package's audio/wavio.py, its numpy paths). The
-engine's output contract is mono 16-bit PCM at 24 kHz; a cloning reference
-may be any 8/16/24/32-bit PCM WAV.
+(the JAX package's audio/wavio.py). The engine's output contract is mono
+16-bit PCM at 24 kHz; a cloning reference may be any 8/16/24/32-bit PCM
+WAV. 16-bit decode, the float -> int16 quantizer and the downmix run in
+the native library (``native/``) when it is built, in numpy otherwise.
 """
 
 from __future__ import annotations
 
 import wave
+from dataclasses import dataclass
 
 import numpy as np
 
 
-def f32_to_i16(samples: np.ndarray) -> np.ndarray:
-    """Float [-1, 1] -> int16: clamp, scale by 32767, round half away from
-    zero, truncate (bit-identical to ops.pcm.wav_to_pcm16)."""
-    x = np.ascontiguousarray(samples, dtype=np.float32)
-    scaled = np.clip(x, -1.0, 1.0) * np.float32(32767.0)
-    adj = np.where(scaled >= 0, scaled + np.float32(0.5), scaled - np.float32(0.5))
-    return adj.astype(np.int16)
+@dataclass(frozen=True)
+class WavInfo:
+    sample_rate: int
+    channels: int
+    sampwidth: int          # bytes per sample
+    num_frames: int
+
+    @property
+    def duration_s(self) -> float:
+        return self.num_frames / float(self.sample_rate)
+
+
+def wav_info(path: str) -> WavInfo:
+    with wave.open(path, "rb") as w:
+        return WavInfo(
+            sample_rate=w.getframerate(),
+            channels=w.getnchannels(),
+            sampwidth=w.getsampwidth(),
+            num_frames=w.getnframes(),
+        )
 
 
 def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
@@ -30,7 +45,12 @@ def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
         ch = arr.shape[1]
     else:
         raise ValueError(f"samples must be 1-D or 2-D, got shape {arr.shape}")
-    pcm = arr if arr.dtype == np.int16 else f32_to_i16(arr.reshape(-1)).reshape(arr.shape)
+    if arr.dtype == np.int16:
+        pcm = arr
+    else:
+        from ..native import f32_to_i16
+
+        pcm = f32_to_i16(arr.reshape(-1)).reshape(arr.shape)
     with wave.open(path, "wb") as w:
         w.setnchannels(ch)
         w.setsampwidth(2)
@@ -50,7 +70,9 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     if width == 1:  # unsigned 8-bit
         data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
     elif width == 2:
-        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        from ..native import i16_to_f32
+
+        data = i16_to_f32(np.frombuffer(raw, dtype="<i2"))
     elif width == 3:
         b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
         as32 = (b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8)
@@ -70,5 +92,7 @@ def to_mono(samples: np.ndarray) -> np.ndarray:
     """Average channels down to mono float32."""
     arr = np.asarray(samples, dtype=np.float32)
     if arr.ndim == 2:
-        arr = arr.mean(axis=1).astype(np.float32)
+        from ..native import downmix_mono
+
+        arr = downmix_mono(arr)
     return arr

@@ -125,16 +125,11 @@ def transcribe_wav(wav_path: str) -> str | None:
 
 def offer_transcribe(wav_path: str) -> str | None:
     """Ask the user whether to auto-transcribe; returns the transcript or
-    None. The terminal UI (``ui.py``, which needs ``rich``) is imported
-    only here, when an ASR provider is available; it is not ported yet."""
+    None (None at once when no provider is available). The terminal UI is
+    imported here, so this module stays free of it."""
     if not asr_available():
         return None
-    try:
-        from .ui import console, safe_line_input
-    except ImportError as e:
-        raise NotImplementedError(
-            "offer_transcribe needs the terminal UI (ui.py), which waits "
-            "for ROADMAP queue A, item 13b") from e
+    from .ui import console, safe_line_input
 
     console.print(
         "[accent]Auto-transcribe this audio with the local ASR model? "

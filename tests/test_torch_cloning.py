@@ -446,11 +446,19 @@ def test_serving_engine_clones_like_single_stream_and_jax(synthetic, temp_dir):
     assert m["segments"] == 2 and tm._serving is not None
 
 
-def test_reference_audio_is_mixed_down_and_resampled(temp_dir):
+@pytest.mark.parametrize("native", ["auto", "never"])
+def test_reference_audio_is_mixed_down_and_resampled(temp_dir, monkeypatch,
+                                                     native):
     """A stereo 16 kHz reference reads, mixes down and resamples to 24 kHz
-    as the JAX package's scipy path does."""
+    as the JAX package's does under the same QWEN3_TTS_NATIVE: the native
+    windowed-sinc kernel by default, scipy under ``never``."""
+    from qwen3_tts_tpu import native as jax_native
     from qwen3_tts_tpu.audio import resample as jax_resample
 
+    monkeypatch.setenv("QWEN3_TTS_NATIVE", native)
+    # the JAX package reads the knob once, at its library's first load
+    monkeypatch.setattr(jax_native, "_LIB", None)
+    monkeypatch.setattr(jax_native, "_TRIED", False)
     left = _clip(0.5, 16000)
     stereo = np.stack([left, 0.5 * left], axis=1)
     path = os.path.join(temp_dir, "stereo.wav")
@@ -460,9 +468,7 @@ def test_reference_audio_is_mixed_down_and_resampled(temp_dir):
     mono = to_mono(data)
     np.testing.assert_allclose(mono, data.mean(axis=1), atol=0)
     got = resample(mono, 16000, 24000)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("QWEN3_TTS_NATIVE", "never")  # the JAX package's scipy path
-        want = jax_resample(mono, 16000, 24000)
+    want = jax_resample(mono, 16000, 24000)
     assert got.shape == (12000,) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
 

@@ -33,7 +33,7 @@ from qwen3_tts_tpu.models.codec import init_codec
 from qwen3_tts_tpu.models.talker import init_talker
 from qwen3_tts_tpu.runtime.sampling import SamplingConfig as JaxSampling
 from qwen3_tts_tpu.voices import sanitize_voice_name as jax_sanitize
-from qwen3_tts_tpu_torch import profiling, quality, transcription, voices
+from qwen3_tts_tpu_torch import profiling, quality, transcription, ui, voices
 from qwen3_tts_tpu_torch.audio import write_wav
 from qwen3_tts_tpu_torch.audio.stretch import time_stretch
 from qwen3_tts_tpu_torch.device_lock import device_lock
@@ -186,9 +186,9 @@ def test_registered_providers_in_order(registry, monkeypatch, tiny_wav):
     assert registry.asr_available()
     assert registry.transcribe_wav(tiny_wav) == "from good"
     assert registry.transcribe_wav("/nonexistent.wav") is None
-    # the terminal UI is not ported: the interactive offer names its item
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        registry.offer_transcribe(tiny_wav)
+    # the interactive offer: y transcribes with the first working provider
+    monkeypatch.setattr(ui, "safe_line_input", lambda prompt="": "y")
+    assert registry.offer_transcribe(tiny_wav) == "from good"
 
 
 def test_backend_knob_picks_the_package_whisper_or_the_pipeline(
@@ -517,6 +517,37 @@ with tempfile.TemporaryDirectory() as tmp:
     out["quality"] = quality.compare_decode_configs(
         model, {"kv8": {"kv": "int8"}}, ["hi"], transcription.transcribe_wav,
         max_frames=4)["variants"]["kv8"]["median_wer_delta"]
+    # the terminal app: scripted custom and design sessions on tiny CPU
+    # models, a recording console in place of the rich one
+    import contextlib, types
+    from qwen3_tts_tpu_torch import app, io, sessions, ui, voices
+    from qwen3_tts_tpu_torch.sessions import custom, design
+    class Recorder:
+        lines = []
+        def print(self, *objects, **kwargs):
+            self.lines.append(" ".join(str(o) for o in objects))
+        def status(self, *args, **kwargs):
+            return contextlib.nullcontext()
+    answers = ["1", "2", "2", "Hello there.", "", "a calm narrator", "Hi.", ""]
+    def ask(prompt=""):
+        if not answers:
+            raise EOFError
+        return answers.pop(0)
+    os.environ["QWEN3_TTS_CPU"] = "1"
+    io.BASE_OUTPUT_DIR = os.path.join(tmp, "app")
+    io.AUTO_PLAY = False
+    io.time = types.SimpleNamespace(sleep=lambda s: None)
+    for mod in (ui, io, voices, custom, design):
+        mod.console = Recorder()
+    io.clear_screen = custom.clear_screen = design.clear_screen = lambda: None
+    ui.safe_line_input = custom.safe_line_input = ask
+    design.safe_line_input = ask
+    custom.ensure_model = lambda spec: "synthetic:tiny:custom"
+    design.ensure_model = lambda spec: "synthetic:tiny:design"
+    sessions.run_custom_session("1")
+    sessions.run_design_session("2")
+    out["app_wavs"] = [f for _, _, fs in os.walk(io.BASE_OUTPUT_DIR) for f in fs]
+    out["app_console"] = Recorder.lines
     out["loaded"] = sorted(n for n in BLOCK if n in sys.modules)
 print(json.dumps(out))
 """
@@ -524,10 +555,12 @@ print(json.dumps(out))
 
 def test_surfaces_run_with_the_gpu_machines_packages_missing(temp_dir):
     """The server, client, batch, transcription, quality and Whisper
-    modules with jax, transformers, safetensors, ml_dtypes, rich and
-    prompt_toolkit blocked: a tiny request, a batch item, a quality step
-    and a tiny transcription, whose tokens and text equal the JAX
-    package's Whisper on the same snapshot."""
+    modules, and the terminal app's io, voices, sessions and app, with
+    jax, transformers, safetensors, ml_dtypes, rich and prompt_toolkit
+    blocked: a tiny request, a batch item, a quality step, a tiny
+    transcription, whose tokens and text equal the JAX package's Whisper
+    on the same snapshot, and scripted custom and design sessions that
+    save one WAV each with no error line on their console."""
     import jax.numpy as jnp
 
     from qwen3_tts_tpu.models import whisper as jw
@@ -546,6 +579,10 @@ def test_surfaces_run_with_the_gpu_machines_packages_missing(temp_dir):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["loaded"] == []
     assert got["wav_bytes"] > 44 and got["batch"] == 1
+    assert len(got["app_wavs"]) == 2, got["app_console"]
+    assert sum("loaded" in ln for ln in got["app_console"]) == 2
+    assert any(ln.startswith("Voice Design\n") for ln in got["app_console"])
+    assert not [ln for ln in got["app_console"] if "[err]" in ln]
     assert got["quality"] is not None
     snap = write_whisper_snapshot(os.path.join(temp_dir, "asr"),
                                   whisper_config_dict(32, (2, 2), 4, 64, 8,
