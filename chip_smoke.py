@@ -17,9 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    pass) plus one tiny shape, in bf16, with
    max|kernel - plain| <= 1e-2 * max|plain|; each kernel twice, its two
    outputs bit-identical (split-K reduced in a fixed order), with its
-   launch plan's path, rows per block, splits and blocks; time kernel,
-   plain version, and a library yardstick (plain dequantization plus one
-   torch.matmul), and compute the bound (bytes over 3.35 TB/s vs
+   launch plan's path, rows per block, splits and blocks; time the
+   kernel, and, at a talker frame's shapes at M=1, the plain version and
+   a library yardstick (plain dequantization plus one torch.matmul), and
+   compute the bound (bytes over 3.35 TB/s vs
    operations over 989 TFLOP/s, whichever is larger); then one
    ``frame_sum`` line: each kernel's time, bound and library time summed
    over a talker frame at M=1 (28 layers x 7 linears, plus the head);
@@ -44,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    long;
 7. checkpoint import: a snapshot in the published layout at the geometry
    of configs.flagship_feedback_code2wav() (~3 GB; the temp directory
-   needs ~11 GB free, with phase 15's recovery export) is fabricated, imported with load_model(dir) (nothing
+   needs ~11 GB free, with phase 15's recovery export) is fabricated
+   (in a thread while phase 1's nvcc processes run), imported with
+   load_model(dir) (nothing
    unmapped or synthetic, residual_sum + code2wav at that config's
    widths), reloaded from its _tpu_native cache (every leaf bit-equal to
    the first load's), and driven as one more main path, grouped layout,
@@ -65,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    single-stream codes on the card and the same engine's codes on the CPU
    (a bf16 run prints its agreement only); then
    configs.flagship_feedback_code2wav() at full width, eight streams (eight
-   sentences and voices) of 64 frames after one warm run: aggregate RTF,
+   sentences and voices) of 36 frames after one warm run: aggregate RTF,
    TTFA p50/max, kernel A's launches per step and per frame, the shapes
    it ran, peak memory, every WAV checked; then a generate_audio call of at
    least three segments, which goes through the same engine;
@@ -164,7 +167,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    24 kHz WAV, finite and not silent, is saved, the console holds no
    error line and kernel A launched (load, session and generate seconds,
    frames, RTF from the WAV's length, peak memory, kernel A launches a
-   frame).
+   frame);
+17. phase ``parallel`` (parallel/: tensor-parallel decode over
+   torch.distributed), last: two ranks on cuda:0 over gloo (NCCL needs a
+   card a rank), started by parallel.comm.launch after phase 1 built the
+   kernels. Step ``tiny_f32``: the tiny residual_sum + code2wav model
+   (int8 weights, float32) at tp 2, a 16-frame synthesis and four serving
+   streams of different budgets, greedy codes equal to the same tree's
+   one-rank run on the CPU; ``flagship_f32``: flagship_feedback_code2wav
+   in float32 with int8 weights, the talker logits of the prefill and 8
+   teacher-forced steps within PARALLEL_F32_TOL of rank 0's unsharded run
+   (the largest difference printed beside it); ``flagship_bf16``: the
+   same in bf16, a 64-frame synthesis and eight serving streams of 32
+   frames, every WAV checked, the ranks' codes equal, kernel A never
+   launched and kernel B at the shard shapes (each shape the plan missed
+   held against its plain version first); per rank kernel B launches a
+   frame and shapes, all_reduce calls a frame, their host seconds and the
+   seconds spent first waiting for the card, peak memory, RTF and
+   aggregate RTF (no speed claimed: the host-staged gloo
+   sum sets the pace).
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -344,11 +365,15 @@ def f32_cases() -> list[tuple]:
 
 
 def phase_kernels(torch, cases, checked: dict, source: str,
-                  f32: bool = False) -> None:
+                  f32: bool = False, timed: bool = True) -> None:
     """Hold each case's kernel against its plain version on the card and
     time kernel, plain version and library yardstick; rows go into
     ``checked`` keyed by case. ``source`` says where the shapes came from;
-    ``f32``: float32 x and out (the kernels' float32 instances)."""
+    ``f32``: float32 x and out (the kernels' float32 instances);
+    ``timed=False``: the check alone (one weight copy, no times). The
+    plain version and the library are timed only where the kernels line
+    and frame_sum read them, a talker frame's shapes at M=1 (for the 400 s
+    budget: ~14 s on the card)."""
     from qwen3_tts_tpu_torch.ops.dequant_matmul import (
         dequant_matmul_cuda, dense_matmul, plan_kernel_b, quantized_matmul_ref,
     )
@@ -377,7 +402,7 @@ def phase_kernels(torch, cases, checked: dict, source: str,
         name, m, n, k, gs = case
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         per_copy = n * k + 2 * (k // gs) * n * 4
-        copies = max(1, min(32, math.ceil(128e6 / per_copy)))
+        copies = max(1, min(32, math.ceil(128e6 / per_copy))) if timed else 1
         sets = []
         for _ in range(copies):
             q, s, b = _weights(torch, n, k, gs, gen, dev)
@@ -415,16 +440,20 @@ def phase_kernels(torch, cases, checked: dict, source: str,
                      "rows": plan.rows}
         if "path" not in extra:
             extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
-        t_kern = device_time_ms(torch, kern, sets)
-        t_plain = device_time_ms(torch, plain, sets)
-        t_lib = device_time_ms(torch, lib, sets)
         t_bound, bound_by = bound_ms(m, n, k, gs, f32)
+        times = {"kernel_ms": None, "plain_ms": None, "library_ms": None}
+        if timed:
+            times["kernel_ms"] = device_time_ms(torch, kern, sets)
+        if timed and m == 1 and (n, k) in TALKER_FRAME:
+            times["plain_ms"] = device_time_ms(torch, plain, sets)
+            times["library_ms"] = device_time_ms(torch, lib, sets)
         row = {"phase": "kernels", "shapes_from": source, "kernel": name,
                "dtype": str(dtype).replace("torch.", ""),
                "M": m, "N": n, "K": k, "gs": gs, "max_abs_err": err,
-               "max_abs_plain": scale_ref, "kernel_ms": t_kern,
-               "plain_ms": t_plain, "library_ms": t_lib, "bound_ms": t_bound,
-               "bound_by": bound_by, "bound_share": t_bound / t_kern, **extra}
+               "max_abs_plain": scale_ref, **times, "bound_ms": t_bound,
+               "bound_by": bound_by,
+               "bound_share": t_bound / times["kernel_ms"] if timed else None,
+               **extra}
         log(row)
         checked[case] = row
         del sets
@@ -463,13 +492,15 @@ def main() -> None:
     log({"phase": "env", "python": sys.version.split()[0],
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
+    snapshot = start_snapshot()
     phase_build()
+    snapshot[1].result()  # no timed phase runs beside the fabrication
     checked: dict = {}
     phase_kernels(torch, planned_cases(), checked, "plan")
     phase_frame_sum(checked)
     checked_f32: dict = {}
     phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
-    launches, shapes, runs = phase_main_paths(torch)
+    launches, shapes, runs = phase_main_paths(torch, snapshot)
     app_counts, app_ran = phase_app(torch)
     mtp_counts, mtp_ran = phase_mtp(torch, runs["flagship_feedback_code2wav"])
     counts, ran, serving_rtf = phase_serving(
@@ -479,11 +510,13 @@ def main() -> None:
     del asr
     asr_snapshot.cleanup()
     phase_train(torch)
-    for run_shapes in (app_ran, mtp_ran, ran, server_ran):
+    par_counts, par_ran = phase_parallel(torch, checked)
+    for run_shapes in (app_ran, mtp_ran, ran, server_ran, par_ran):
         for name, run in run_shapes.items():
             shapes.setdefault(name, set()).update(run)
     launches = {name: launches[name] + app_counts[name] + mtp_counts[name]
-                + counts[name] + server_counts[name] for name in launches}
+                + counts[name] + server_counts[name] + par_counts[name]
+                for name in launches}
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -995,25 +1028,23 @@ def _same_tree(torch, a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
-    """Checkpoint import at full width: fabricate a snapshot in the
-    published layout at configs.flagship_feedback_code2wav()'s geometry,
-    with a Mimi speech tokenizer at the published widths,
-    load_model(dir) it onto the card (first import, then the _tpu_native
-    cache, which must give the same leaves bit for bit), and drive it as a
-    main path; then phase ``clone`` on the same snapshot. Returns the
-    import run's kernel launches, the shapes both runs ran, and the import
-    run's RTF."""
-    import dataclasses
+def start_snapshot():
+    """Fabricate phase import's snapshot in a thread while phase build's
+    nvcc processes run (numpy and disk beside subprocesses; main waits
+    for it before any timed phase): the published layout at
+    configs.flagship_feedback_code2wav()'s geometry, with a Mimi speech
+    tokenizer at the published widths, in a new temporary directory that
+    phase_import removes. Returns (the directory, the future of the
+    fabrication's log row)."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
-    from qwen3_tts_tpu_torch.engine import configs, load_model
+    from qwen3_tts_tpu_torch.engine import configs
     from qwen3_tts_tpu_torch.engine.fabricate import write_published_snapshot
     from qwen3_tts_tpu_torch.models.speech_tokenizer import (
         SpeechTokenizerConfig,
     )
 
-    ref = configs.flagship_feedback_code2wav()
     tmp = tempfile.gettempdir()
     free = shutil.disk_usage(tmp).free
     log({"phase": "import", "step": "disk", "tmpdir": tmp,
@@ -1021,13 +1052,42 @@ def phase_import(torch, feedback_rtf: float) -> tuple[dict, dict, float]:
     if free < IMPORT_DISK_NEED:
         fail(f"import: {free / GB:.1f} GB free in {tmp}, the phase needs "
              f"{IMPORT_DISK_NEED / GB:.0f} GB")
-    with tempfile.TemporaryDirectory(prefix="q3tts_snapshot_") as snap:
+    directory = tempfile.TemporaryDirectory(prefix="q3tts_snapshot_")
+
+    def fabricate() -> dict:
         t0 = time.perf_counter()
         nbytes = write_published_snapshot(
-            snap, ref, seed=0, fast=True,
-            speech_tokenizer=SpeechTokenizerConfig())
-        log({"phase": "import", "step": "fabricate", "bytes": nbytes,
-             "fabricate_s": time.perf_counter() - t0})
+            directory.name, configs.flagship_feedback_code2wav(), seed=0,
+            fast=True, speech_tokenizer=SpeechTokenizerConfig())
+        return {"phase": "import", "step": "fabricate", "bytes": nbytes,
+                "fabricate_s": time.perf_counter() - t0,
+                "beside": "phase build"}
+
+    pool = ThreadPoolExecutor(1)
+    fabrication = pool.submit(fabricate)
+    pool.shutdown(wait=False)
+    return directory, fabrication
+
+
+def phase_import(torch, feedback_rtf: float,
+                 snapshot) -> tuple[dict, dict, float]:
+    """Checkpoint import at full width: the snapshot of start_snapshot,
+    load_model(dir) onto the card (first import, then the _tpu_native
+    cache, which must give the same leaves bit for bit), and driven as a
+    main path; then phase ``clone`` on the same snapshot. Returns the
+    import run's kernel launches, the shapes both runs ran, and the import
+    run's RTF."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs, load_model
+    from qwen3_tts_tpu_torch.models.speech_tokenizer import (
+        SpeechTokenizerConfig,
+    )
+
+    ref = configs.flagship_feedback_code2wav()
+    directory, fabrication = snapshot
+    with directory as snap:
+        log(fabrication.result())
 
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -1521,7 +1581,7 @@ def phase_app(torch) -> tuple[dict, dict]:
     return counts, shapes
 
 
-def phase_main_paths(torch) -> tuple[dict, dict, dict]:
+def phase_main_paths(torch, snapshot) -> tuple[dict, dict, dict]:
     """The reference phase, then every main path and the imported
     checkpoint's; returns each kernel's launches on the flagship's main
     path under its layout (the first path that runs it), the shapes each
@@ -1537,7 +1597,8 @@ def phase_main_paths(torch) -> tuple[dict, dict, dict]:
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
     # the imported checkpoint's path: its shapes join the coverage check
-    _, ran, _ = phase_import(torch, runs["flagship_feedback_code2wav"]["rtf"])
+    _, ran, _ = phase_import(torch, runs["flagship_feedback_code2wav"]["rtf"],
+                             snapshot)
     for name, run in ran.items():
         shapes.setdefault(name, set()).update(run)
     return launches, shapes, runs
@@ -1708,7 +1769,11 @@ SERVING_TEXTS = (
     "The meeting moved to Thursday at half past nine.",
     "A warm cup of tea waits for you in the kitchen.",
 )
-SERVING_FRAMES = 64
+# phase serving's flagship and kv_int8 streams: 36 frames, the (4, 32) ramp's
+# two dispatches (cut from 64 for the 400 s budget when phase parallel came;
+# both steps at one depth, so their peaks still compare)
+SERVING_FRAMES = 36
+SERVER_FRAMES = 64   # phase server's clients
 
 
 def _serving_codes(engine, prompts, budgets) -> list:
@@ -2284,7 +2349,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
     # the OpenAI surface takes no frame budget: a text whose estimate is 64
     oa_text = next((SERVING_TEXTS[7][:n] for n in range(1, 60)
                     if _estimate_frames(SERVING_TEXTS[7][:n],
-                                        cfg.codec.frame_rate) >= SERVING_FRAMES),
+                                        cfg.codec.frame_rate) >= SERVER_FRAMES),
                    SERVING_TEXTS[7])
     oa_frames = _estimate_frames(oa_text, cfg.codec.frame_rate)
     service = TTSService(model, max_streams=SERVING_STREAMS).start()
@@ -2298,7 +2363,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
                   for i in range(SERVING_STREAMS)]
         reqs = []
         for i, (text, voice) in enumerate(zip(SERVING_TEXTS, voices)):
-            body = {"text": text, "voice": voice, "max_frames": SERVING_FRAMES}
+            body = {"text": text, "voice": voice, "max_frames": SERVER_FRAMES}
             if i < 4:
                 reqs.append(("complete", "/v1/synthesize", body, 1.0))
             elif i < 7:
@@ -2339,7 +2404,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
             if r is None or r["status"] != 200:
                 fail(f"server {kind}: {r and (r['status'], r['body'][:300])}")
             pcm = _pcm(r)
-            frames_asked = oa_frames if kind == "openai" else SERVING_FRAMES
+            frames_asked = oa_frames if kind == "openai" else SERVER_FRAMES
             budget = (frames_asked * hop - skip) / speed
             # WSOLA's output is whole 30 ms frames
             if not pcm.any() or len(pcm) > budget * 1.1 + 0.03 * sr:
@@ -2379,7 +2444,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
             fail(f"server counters: {health}, {metrics}")
         log({"phase": "server", "step": "flagship", "model": label,
              "layout": "grouped", "clients": [k for k, *_ in reqs],
-             "frames_budget": SERVING_FRAMES, "openai_chars": len(oa_text),
+             "frames_budget": SERVER_FRAMES, "openai_chars": len(oa_text),
              "openai_frames_budget": oa_frames,
              "frames": frames, "audio_s": audio_s, "wall_s": wall,
              "aggregate_rtf": audio_s / wall,
@@ -2837,6 +2902,312 @@ def phase_train_recovery(torch, snap: str) -> None:
          "step_wall_s": time.perf_counter() - t0})
     _check_no_launches("train recovery", counts)
 
+
+
+# --------------------------------------------------------------------------
+# phase parallel: tensor-parallel decode over torch.distributed
+# --------------------------------------------------------------------------
+
+PARALLEL_TP = 2
+# two ranks share the one card, so NCCL (one card a rank) cannot carry them:
+# gloo, which sums CUDA tensors through host memory
+PARALLEL_BACKEND, PARALLEL_DEVICE = "gloo", "cuda:0"
+PARALLEL_TINY_FRAMES = 16
+PARALLEL_TINY_BUDGETS = (6, 16, 11, 12)
+PARALLEL_TF_STEPS = 8          # teacher-forced decode steps after the prefill
+PARALLEL_TF_PROMPT = 32        # prefill rows of the logits check
+# float32 talker logits, tp = 2 against one rank on the same weights:
+# max|sharded - whole| <= PARALLEL_F32_TOL * max|whole| (the tp sum adds
+# two partial f32 products where one rank accumulates them in one)
+PARALLEL_F32_TOL = 1e-4
+PARALLEL_FRAMES = 64           # flagship_bf16 single stream
+PARALLEL_SERVING_FRAMES = 32   # flagship_bf16 serving, 8 streams
+PARALLEL_NOTE = ("no speed claimed: the gloo sum stages every tp all_reduce "
+                 "through host memory and is expected to set the pace")
+
+
+def _parallel_feedback_tiny():
+    """The tiny residual_sum + code2wav model with int8 weights, float32."""
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs
+
+    return dataclasses.replace(configs.with_quant(configs.with_code2wav(
+        configs.tiny_feedback(), configs.tiny_code2wav().code2wav), True),
+        dtype="float32")
+
+
+def _parallel_decode(model, prompts, single_frames: int, budgets,
+                     slots: int) -> dict:
+    """One greedy-or-seeded single-stream synthesis of ``prompts[0]`` and
+    one ServingEngine.run of ``prompts``: codes, WAVs, frames, walls."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    r = model.generator.synthesize(prompts[0], max_frames=single_frames,
+                                   seed=0, collect_codes=True)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    engine = model.serving_engine(slots)
+    engine.rng.manual_seed(0)
+    t0 = time.perf_counter()
+    served = engine.run(prompts, max_frames=list(budgets))
+    torch.cuda.synchronize()
+    return {"single": {"codes": r.codes, "wav": r.wav, "frames": r.frames,
+                       "wall_s": single_wall, "ttfa_s": r.ttfa_s},
+            "served": {"codes": [np.concatenate(st.codes, 1)
+                                 for _, st in served],
+                       "wavs": [w for w, _ in served],
+                       "frames": [st.frames for _, st in served],
+                       "ttfa_s": [st.ttfa_s for _, st in served],
+                       "wall_s": time.perf_counter() - t0}}
+
+
+def _talker_logits(model, mesh) -> "np.ndarray":
+    """Float32 talker logits [1 + PARALLEL_TF_STEPS, V]: the prefill's last
+    position over PARALLEL_TF_PROMPT text rows, then teacher-forced decode
+    steps on fixed codec tokens."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models.layers import rope_tables
+    from qwen3_tts_tpu_torch.models.talker import talker_forward
+
+    t, p = model.cfg.talker, model.params
+    dev = p["codec_emb"].device
+    S = PARALLEL_TF_PROMPT + PARALLEL_TF_STEPS
+    tp = 1 if mesh is None else mesh.tp
+    shape = (t.n_layers, 1, S, t.n_kv_heads // tp, t.head_dim)
+    ck = torch.zeros(shape, dtype=p["codec_emb"].dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    cos, sin = rope_tables(S, t.head_dim, t.rope_theta, dev)
+    ids = torch.arange(PARALLEL_TF_PROMPT, device=dev) * 37 % t.vocab_size
+    _, lg, _, _ = talker_forward(p, t, p["text_emb"][ids][None], ck, cv, 0,
+                                 cos, sin, head_last_only=True, mesh=mesh)
+    rows = [lg[0, -1]]
+    for i in range(PARALLEL_TF_STEPS):
+        tok = torch.tensor([[(97 * i + 11) % t.codec_vocab]], device=dev)
+        _, lg, _, _ = talker_forward(p, t, p["codec_emb"][tok], ck, cv,
+                                     PARALLEL_TF_PROMPT + i, cos, sin,
+                                     mesh=mesh)
+        rows.append(lg[0, -1])
+    return torch.stack(rows).float().cpu().numpy()
+
+
+def parallel_rank(device, tiny_prompts) -> dict:
+    """One rank of phase ``parallel`` (started by parallel.comm.launch; it
+    prints nothing and raises on any fault): steps tiny_f32, flagship_f32
+    and flagship_bf16 on this rank's tp shard."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.parallel import (
+        MeshPlan, build_mesh, comm, shard_model,
+    )
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mesh = build_mesh(MeshPlan(dp=1, tp=PARALLEL_TP), device)
+    out = {"rank": mesh.rank, "device": str(device)}
+
+    t_step = time.perf_counter()
+    model = Qwen3TTSModel.synthetic(_parallel_feedback_tiny(), seed=0,
+                                    device="cpu").to(device)
+    model.sampling = SamplingConfig(greedy=True)
+    shard_model(model, mesh)
+    out["tiny_f32"] = _parallel_decode(
+        model, tiny_prompts, PARALLEL_TINY_FRAMES, PARALLEL_TINY_BUDGETS, 4)
+    out["tiny_f32"]["step_s"] = time.perf_counter() - t_step
+
+    t_step = time.perf_counter()
+    cfg = dataclasses.replace(configs.flagship_feedback_code2wav(),
+                              dtype="float32")
+    model = Qwen3TTSModel.synthetic(cfg, seed=0, device=device)
+    t0 = time.perf_counter()
+    whole = _talker_logits(model, None) if mesh.rank == 0 else None
+    whole_s = time.perf_counter() - t0
+    shard_model(model, mesh)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["flagship_f32"] = {"whole": whole, "whole_s": whole_s,
+                           "sharded": _talker_logits(model, mesh),
+                           "sharded_s": time.perf_counter() - t0}
+    del model
+    torch.cuda.empty_cache()
+    out["flagship_f32"]["step_s"] = time.perf_counter() - t_step
+
+    t_step = time.perf_counter()
+    model = Qwen3TTSModel.synthetic(configs.flagship_feedback_code2wav(),
+                                    seed=0, device=device)
+    shard_model(model, mesh)
+    cfg = model.cfg
+    voices = [cfg.speakers[i % len(cfg.speakers)]
+              for i in range(SERVING_STREAMS)]
+    prompts = [prepare_segments(model, text, voice=voice)[0][0]
+               for text, voice in zip(SERVING_TEXTS, voices)]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    comm.reset_all_reduce_stats()
+    run = _parallel_decode(model, prompts, PARALLEL_FRAMES,
+                           [PARALLEL_SERVING_FRAMES] * SERVING_STREAMS,
+                           SERVING_STREAMS)
+    run["launches"] = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    run["shapes"] = {k.name: sorted(k.shapes) for k in cuda_kernels.KERNELS}
+    run["all_reduce"] = dict(comm.ALL_REDUCE)
+    run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / GB
+    run["step_s"] = time.perf_counter() - t_step
+    out["flagship_bf16"] = run
+    return out
+
+
+def _check_wav(where: str, wav, frames: int, cfg) -> None:
+    import numpy as np
+
+    skip = cfg.code2wav.startup_samples
+    if frames < 1 or len(wav) != frames * cfg.codec.hop - skip \
+            or wav.dtype != np.int16 or not wav.any():
+        fail(f"{where}: {len(wav)} samples ({wav.dtype}) for {frames} "
+             f"frames (hop {cfg.codec.hop}, startup {skip}), or silent")
+
+
+def _same_codes(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
+    """Tensor-parallel decode (parallel/) at tp = 2 on one card: two ranks
+    on cuda:0 over gloo (parallel.comm.launch; the kernels were built by
+    phase 1, before the ranks start). Steps: ``tiny_f32`` (the tiny
+    residual_sum + code2wav model, int8 weights: one 16-frame synthesis
+    and 4 serving streams, greedy codes equal to the same tree's one-rank
+    run on the CPU, computed here); ``flagship_f32``
+    (flagship_feedback_code2wav in float32, int8 weights: the talker
+    logits of the prefill and 8 teacher-forced steps against rank 0's
+    unsharded run, within PARALLEL_F32_TOL); ``flagship_bf16`` (the same
+    model in bf16: a 64-frame synthesis and 8 serving streams of 32
+    frames, WAVs checked, the ranks' codes equal, kernel A never launched;
+    kernel B's launches a frame and shapes, all_reduce calls a frame,
+    their host seconds and the card waits before them, peak memory, RTF
+    per rank). Every kernel B shape
+    the kernel phase's plan missed is held against its plain version
+    before the step's lines. Returns the bf16 step's launches (both ranks)
+    and shapes."""
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs, prepare_segments
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.parallel import launch
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    t_phase = time.perf_counter()
+    where = {"backend": PARALLEL_BACKEND, "device": PARALLEL_DEVICE,
+             "tp": PARALLEL_TP}
+    cfg = _parallel_feedback_tiny()
+    host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
+    host.sampling = SamplingConfig(greedy=True)
+    prompts = [prepare_segments(host, text, voice=voice)[0][0]
+               for text, voice in zip(SERVING_TEXTS[:4], cfg.speakers)]
+    cpu = _parallel_decode(host, prompts, PARALLEL_TINY_FRAMES,
+                           PARALLEL_TINY_BUDGETS, 4)
+
+    t0 = time.perf_counter()
+    ranks = launch(parallel_rank, PARALLEL_TP, backend=PARALLEL_BACKEND,
+                   device=PARALLEL_DEVICE, args=(prompts,))
+    launch_s = time.perf_counter() - t0
+
+    for rk in ranks:
+        got = rk["tiny_f32"]
+        ok = (np.array_equal(got["single"]["codes"], cpu["single"]["codes"])
+              and _same_codes(got["served"]["codes"],
+                              cpu["served"]["codes"]))
+        log({"phase": "parallel", "step": "tiny_f32", **where,
+             "rank": rk["rank"], "single_frames": got["single"]["frames"],
+             "served_frames": got["served"]["frames"],
+             "budgets": list(PARALLEL_TINY_BUDGETS), "card_equals_cpu": ok,
+             "step_s": got["step_s"]})
+        if not ok:
+            fail(f"parallel tiny_f32 rank {rk['rank']}: greedy codes at tp="
+                 f"{PARALLEL_TP} differ from the one-rank CPU run")
+
+    whole = ranks[0]["flagship_f32"]["whole"]
+    scale = float(np.abs(whole).max())
+    for rk in ranks:
+        f32 = rk["flagship_f32"]
+        err = float(np.abs(f32["sharded"] - whole).max())
+        log({"phase": "parallel", "step": "flagship_f32", **where,
+             "rank": rk["rank"], "rows": int(whole.shape[0]),
+             "vocab": int(whole.shape[1]), "max_abs_err": err,
+             "max_abs_logit": scale, "tol": PARALLEL_F32_TOL * scale,
+             "rel_tol": PARALLEL_F32_TOL, "sharded_s": f32["sharded_s"],
+             "whole_s": f32["whole_s"] if rk["rank"] == 0 else None,
+             "step_s": f32["step_s"]})
+        if not np.isfinite(err) or err > PARALLEL_F32_TOL * scale:
+            fail(f"parallel flagship_f32 rank {rk['rank']}: max|sharded - "
+                 f"whole| {err} > {PARALLEL_F32_TOL} * {scale}")
+
+    ref = configs.flagship_feedback_code2wav()
+    runs = [rk["flagship_bf16"] for rk in ranks]
+    shapes = {name: set() for name in runs[0]["launches"]}
+    for run in runs:
+        for name, run_shapes in run["shapes"].items():
+            shapes[name].update(tuple(s) for s in run_shapes)
+    missing = sorted({(name, *shape) for name, run_shapes in shapes.items()
+                      for shape in run_shapes} - checked.keys())
+    phase_kernels(torch, missing, checked, "parallel", timed=False)
+    for run, rk in zip(runs, ranks):
+        single, served = run["single"], run["served"]
+        _check_wav(f"parallel flagship_bf16 rank {rk['rank']} single",
+                   single["wav"], single["frames"], ref)
+        for i, (w, n) in enumerate(zip(served["wavs"], served["frames"])):
+            _check_wav(f"parallel flagship_bf16 rank {rk['rank']} stream {i}",
+                       w, n, ref)
+        frames = single["frames"] + sum(served["frames"])
+        sr = ref.codec.sample_rate
+        log({"phase": "parallel", "step": "flagship_bf16", **where,
+             "rank": rk["rank"], "model": "flagship_feedback_code2wav",
+             "single_frames": single["frames"],
+             "single_rtf": len(single["wav"]) / sr / single["wall_s"],
+             "single_ttfa_s": single["ttfa_s"],
+             "streams": len(served["frames"]),
+             "served_frames": served["frames"],
+             "aggregate_rtf": sum(len(w) for w in served["wavs"]) / sr
+             / served["wall_s"],
+             "ttfa_p50_s": statistics.median(served["ttfa_s"]),
+             "launches": run["launches"],
+             "dequant_matmul_launches_per_frame":
+                 run["launches"]["dequant_matmul"] / frames,
+             "dequant_matmul_shapes": run["shapes"]["dequant_matmul"],
+             "all_reduce_per_frame": run["all_reduce"]["calls"] / frames,
+             "all_reduce_host_s": run["all_reduce"]["host_s"],
+             "all_reduce_sync_s": run["all_reduce"]["sync_s"],
+             "peak_mem_gb": run["peak_mem_gb"], "step_s": run["step_s"],
+             "single_wall_s": single["wall_s"],
+             "serving_wall_s": served["wall_s"], "note": PARALLEL_NOTE})
+        if run["launches"]["grouped_qmv"] or not run["launches"]["dequant_matmul"]:
+            fail(f"parallel flagship_bf16 rank {rk['rank']}: launches "
+                 f"{run['launches']}: kernel B must carry every int8 linear "
+                 "under tp (row-major shards), kernel A none")
+    a, b = runs[0], runs[-1]
+    agree = (np.array_equal(a["single"]["codes"], b["single"]["codes"])
+             and _same_codes(a["served"]["codes"], b["served"]["codes"]))
+    log({"phase": "parallel", "step": "summary", **where,
+         "ranks_agree": agree, "shapes_checked_here": len(missing),
+         "launch_s": launch_s, "phase_s": time.perf_counter() - t_phase})
+    if not agree:
+        fail("parallel flagship_bf16: the ranks' codes differ")
+    counts = {name: sum(run["launches"][name] for run in runs)
+              for name in runs[0]["launches"]}
+    return counts, shapes
 
 if __name__ == "__main__":
     main()

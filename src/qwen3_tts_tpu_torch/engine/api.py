@@ -128,6 +128,9 @@ class Qwen3TTSModel:
     # native cache
     st_raw: Any = field(default=None, repr=False)
     load_times: dict = field(default_factory=dict)   # seconds of each step
+    # the tp mesh that parallel.shard_model sliced the trees for (None:
+    # whole trees); the generator and serving engine decode over it
+    mesh: Any = field(default=None, repr=False)
     _generator: Any = field(default=None, repr=False)
     _serving: Any = field(default=None, repr=False)
 
@@ -154,7 +157,7 @@ class Qwen3TTSModel:
             self._generator = Generator(
                 cfg=self.cfg, params=self.params, cp_params=self.cp_params,
                 codec_params=self.codec_params,
-                sampling=self.sampling or SamplingConfig(),
+                sampling=self.sampling or SamplingConfig(), mesh=self.mesh,
             )
         return self._generator
 

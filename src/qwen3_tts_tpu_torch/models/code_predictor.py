@@ -15,6 +15,11 @@ rejection, when sampling) per row until every row is final. Greedy output
 equals the depth_group=1 stream exactly; sampled output equals it in
 distribution. The JAX package's ``lax.while_loop`` is a Python loop that
 reads one host flag per round.
+
+``mesh`` (``parallel/``): the depth transformer is this rank's tp shard
+(``parallel.sharding.cp_mesh``), run at local heads with local caches;
+its heads and embedding tables are replicated, so codes are equal on
+every rank.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ def predict_residuals(
     return_feedback: bool = False,
     _as_draft: bool = False,
     _return_probs: bool = False,
+    mesh=None,
 ):
     """Depth-autoregressive prediction of the residual codebooks: codes
     [B, Q-1] (int64); with ``return_feedback``, (codes,
@@ -99,7 +105,8 @@ def predict_residuals(
     or exact speculative sampling when sampling). ``_as_draft`` stops that
     routing (the spec paths call back in for their draft);
     ``_return_probs`` also returns the filtered distribution [B, Q-1, V]
-    f32 each sampled code was drawn from."""
+    f32 each sampled code was drawn from. ``mesh``: a tp-sharded depth
+    transformer (module docstring)."""
     cp = cfg.code_predictor
     cc = cfg.codec
     k = cp.depth_group
@@ -111,9 +118,10 @@ def predict_residuals(
         if stochastic and cp.temperature > 0.0:
             return predict_residuals_spec_sampled(
                 params, cfg, talker_hidden, cb0_tokens, generator,
-                return_feedback=return_feedback)
+                return_feedback=return_feedback, mesh=mesh)
         return predict_residuals_spec(params, cfg, talker_hidden, cb0_tokens,
-                                      return_feedback=return_feedback)
+                                      return_feedback=return_feedback,
+                                      mesh=mesh)
     if _return_probs and not stochastic:
         raise ValueError("_return_probs needs a sampling config and generator")
     n_res = cc.num_codebooks - 1
@@ -140,7 +148,8 @@ def predict_residuals(
     else:
         x0 = hid + cb0
 
-    cache_shape = (cp.n_layers, B, depth_len, cp.n_heads, cp.head_dim)
+    heads = cp.n_heads // (1 if mesh is None else mesh.tp)
+    cache_shape = (cp.n_layers, B, depth_len, heads, cp.head_dim)
     cache_k = torch.zeros(cache_shape, dtype=x0.dtype, device=dev)
     cache_v = torch.zeros(cache_shape, dtype=x0.dtype, device=dev)
 
@@ -150,9 +159,9 @@ def predict_residuals(
         for i, bp in enumerate(layers):
             x = transformer_block(
                 bp, x, cos=cos, sin=sin, cache_k=cache_k[i],
-                cache_v=cache_v[i], pos=pos, n_heads=cp.n_heads,
-                n_kv_heads=cp.n_heads, head_dim=cp.head_dim,
-                rms_eps=cp.rms_eps, qk_norm=cp.qk_norm,
+                cache_v=cache_v[i], pos=pos, n_heads=heads,
+                n_kv_heads=heads, head_dim=cp.head_dim,
+                rms_eps=cp.rms_eps, qk_norm=cp.qk_norm, mesh=mesh,
             )
         return rmsnorm(x, dp["ln_f"], cp.rms_eps)
 
@@ -164,8 +173,8 @@ def predict_residuals(
 
     def score_group(h_last, g: int):
         """Group g's k residual codes from one hidden [B, H] -> [B, k]."""
-        heads = dp["heads"][g * k:(g + 1) * k]                      # [k, V, H]
-        logits = torch.einsum("bd,kvd->bkv", h_last.float(), heads.float())
+        w = dp["heads"][g * k:(g + 1) * k]                          # [k, V, H]
+        logits = torch.einsum("bd,kvd->bkv", h_last.float(), w.float())
         cols = []
         for j in range(k):
             if stochastic:
@@ -223,6 +232,7 @@ def depth_logits_teacher_forced(
     talker_hidden: torch.Tensor,   # [B, D_talker]
     cb0_tokens: torch.Tensor,      # [B]
     codes: torch.Tensor,           # [B, Q-1] candidate residual codes
+    mesh=None,
 ) -> torch.Tensor:
     """ONE causal depth pass over the depth_group=1 layout, teacher-forced
     on ``codes``: float32 logits of every residual head [B, Q-1, V]. Row d
@@ -249,14 +259,16 @@ def depth_logits_teacher_forced(
         off = 0
     B, T, _ = x.shape
     cos_t, sin_t = rope_tables(T, cp.head_dim, cp.rope_theta, dev)
-    cache_shape = (B, T, cp.n_heads, cp.head_dim)
+    heads = cp.n_heads // (1 if mesh is None else mesh.tp)
+    cache_shape = (B, T, heads, cp.head_dim)
     for bp in unstack_layers(params["blocks"]):
         x = transformer_block(
             bp, x, cos=cos_t, sin=sin_t,
             cache_k=torch.zeros(cache_shape, dtype=x.dtype, device=dev),
             cache_v=torch.zeros(cache_shape, dtype=x.dtype, device=dev),
-            pos=0, n_heads=cp.n_heads, n_kv_heads=cp.n_heads,
+            pos=0, n_heads=heads, n_kv_heads=heads,
             head_dim=cp.head_dim, rms_eps=cp.rms_eps, qk_norm=cp.qk_norm,
+            mesh=mesh,
         )
     h = rmsnorm(x, params["ln_f"], cp.rms_eps)[:, off:off + n_res]
     return torch.einsum("bnd,nvd->bnv", h.float(), params["heads"].float())
@@ -265,10 +277,11 @@ def depth_logits_teacher_forced(
 def depth_argmax_teacher_forced(params: Params, cfg: ModelConfig,
                                 talker_hidden: torch.Tensor,
                                 cb0_tokens: torch.Tensor,
-                                codes: torch.Tensor) -> torch.Tensor:
+                                codes: torch.Tensor,
+                                mesh=None) -> torch.Tensor:
     """Argmax of ``depth_logits_teacher_forced``: the greedy verifier."""
     return depth_logits_teacher_forced(
-        params, cfg, talker_hidden, cb0_tokens, codes).argmax(dim=-1)
+        params, cfg, talker_hidden, cb0_tokens, codes, mesh).argmax(dim=-1)
 
 
 def predict_residuals_spec(
@@ -278,6 +291,7 @@ def predict_residuals_spec(
     cb0_tokens: torch.Tensor,      # [B]
     return_feedback: bool = False,
     return_rounds: bool = False,
+    mesh=None,
 ):
     """Speculative depth decode, greedy: the depth_group=1 greedy codes
     exactly, at grouped-draft cost.
@@ -293,12 +307,12 @@ def predict_residuals_spec(
     costs the draft and ONE verifying pass. Returns codes [B, Q-1] (plus
     the feedback sum and the number of verifying passes when asked)."""
     draft = predict_residuals(params, cfg, talker_hidden, cb0_tokens,
-                              _as_draft=True)
+                              _as_draft=True, mesh=mesh)
     codes = draft
     rounds = 0
     while True:
         am = depth_argmax_teacher_forced(params, cfg, talker_hidden,
-                                         cb0_tokens, codes)
+                                         cb0_tokens, codes, mesh)
         rounds += 1
         mism = am != codes                                   # [B, Q-1]
         any_m = mism.any(dim=1)
@@ -324,6 +338,7 @@ def predict_residuals_spec_sampled(
     generator: torch.Generator,
     return_feedback: bool = False,
     return_rounds: bool = False,
+    mesh=None,
 ):
     """Exact speculative SAMPLING over the depth axis (the accept /
     residual-resample rule of arXiv:2211.17192), the sampled sibling of
@@ -348,7 +363,8 @@ def predict_residuals_spec_sampled(
     cp_sampling = cp_sampling_config(cfg)
     draft, q = predict_residuals(params, cfg, talker_hidden, cb0_tokens,
                                  generator, _as_draft=True,
-                                 _return_probs=True)  # [B, Q-1], [B, Q-1, V]
+                                 _return_probs=True,
+                                 mesh=mesh)  # [B, Q-1], [B, Q-1, V]
     codes = draft
     B = codes.shape[0]
     dev = codes.device
@@ -358,7 +374,7 @@ def predict_residuals_spec_sampled(
     rounds = 0
     while bool((m < n_res).any()):                     # one host read
         logits = depth_logits_teacher_forced(params, cfg, talker_hidden,
-                                             cb0_tokens, codes)
+                                             cb0_tokens, codes, mesh)
         p = torch.softmax(filtered_logits(logits, cp_sampling), dim=-1)
         u = torch.rand((B, n_res), generator=generator, device=dev)
         px = p.gather(-1, codes[..., None])[..., 0]

@@ -17,6 +17,11 @@ updated copy; here the returned cache tensors are the inputs, updated).
 ``pos`` and ``pad_len`` are Python ints (one utterance: every row at the
 same offset) or ``[B]`` tensors (continuous batched serving: each row at
 its own offset).
+
+Under tensor parallelism (``mesh`` given, ``parallel/``) the blocks hold
+this rank's heads and ffn slice: callers pass the LOCAL head counts, and
+the o and down projections' partial outputs are summed over the tp group
+before the residual add.
 """
 
 from __future__ import annotations
@@ -236,6 +241,7 @@ def attention(
     qk_norm: bool = True,
     pad_len=0,
     window_split: tuple | None = None,
+    mesh=None,
 ) -> AttnOut:
     """GQA attention with a KV-cache write at offset ``pos`` (prefill T > 1
     or decode T == 1). Queries attend over the whole cache with the mask
@@ -245,7 +251,9 @@ def attention(
 
     ``window_split`` (serving): (rows, window) pairs over contiguous row
     groups; group g's queries read only the first ``window`` cache rows.
-    The projections stay whole-batch; only the attention read splits."""
+    The projections stay whole-batch; only the attention read splits.
+    ``mesh``: the head counts are this rank's; the o projection sums over
+    its tp group."""
     B, T, _ = x.shape
     groups = n_heads // n_kv_heads
     if "qkv" in p:  # fused projection (fuse_block_projections)
@@ -297,16 +305,16 @@ def attention(
                              f"{B} rows")
         ctx = torch.cat(parts, dim=0)
     ctx = ctx.reshape(B, T, n_heads * head_dim)
-    return AttnOut(linear(ctx, p["o"]), cache_k, cache_v)
+    return AttnOut(linear(ctx, p["o"], mesh), cache_k, cache_v)
 
 
-def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(p: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     if "gate_up" in p:  # fused [gate; up] projection
         gate, up = linear(x, p["gate_up"]).chunk(2, dim=-1)
     else:
         gate = linear(x, p["gate"])
         up = linear(x, p["up"])
-    return linear(F.silu(gate) * up, p["down"])
+    return linear(F.silu(gate) * up, p["down"], mesh)
 
 
 def _concat_linears(parts: list[dict]) -> dict:
@@ -382,15 +390,17 @@ def transformer_block(
     qk_norm: bool = True,
     pad_len=0,
     window_split: tuple | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Pre-norm residual block: x + Attn(LN(x)); x + MLP(LN(x)). Writes this
-    block's keys/values into ``cache_k``/``cache_v`` in place."""
+    block's keys/values into ``cache_k``/``cache_v`` in place. ``mesh``:
+    a tp-sharded block (local head counts; ``attention``)."""
     attn_out = attention(
         p["attn"], rmsnorm(x, p["ln1"], rms_eps),
         cos=cos, sin=sin, cache_k=cache_k, cache_v=cache_v, pos=pos,
         n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
         rms_eps=rms_eps, qk_norm=qk_norm, pad_len=pad_len,
-        window_split=window_split,
+        window_split=window_split, mesh=mesh,
     )
     x = x + attn_out.out
-    return x + swiglu_mlp(p["mlp"], rmsnorm(x, p["ln2"], rms_eps))
+    return x + swiglu_mlp(p["mlp"], rmsnorm(x, p["ln2"], rms_eps), mesh)

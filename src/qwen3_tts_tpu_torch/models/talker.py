@@ -116,20 +116,25 @@ def talker_forward(
     pad_len=0,                     # left padding: int, or [B] per row
     head_last_only: bool = False,
     window_split: tuple | None = None,
+    mesh=None,
 ):
     """Run all layers; returns (hidden [B,T,D], logits f32, cache_k,
     cache_v). Prefill (T > 1) and decode (T == 1). ``head_last_only``
     scores only the last position (prefill). ``window_split``: per-group
-    attention windows of the serving engine (``layers.attention``)."""
+    attention windows of the serving engine (``layers.attention``).
+    ``mesh``: the blocks are this rank's tp shard (``parallel/``), the
+    caches hold its kv heads; the hidden and logits are whole on every
+    rank (the embeddings, ``ln_f`` and the head are replicated)."""
     T = x_emb.shape[1]
+    tp = 1 if mesh is None else mesh.tp
     cos, sin = rope_slice(cos_table, sin_table, pos, T)
     x = x_emb
     for i, bp in enumerate(unstack_layers(params["blocks"])):
         x = transformer_block(
             bp, x, cos=cos, sin=sin, cache_k=cache_k[i], cache_v=cache_v[i],
-            pos=pos, n_heads=t.n_heads, n_kv_heads=t.n_kv_heads,
+            pos=pos, n_heads=t.n_heads // tp, n_kv_heads=t.n_kv_heads // tp,
             head_dim=t.head_dim, rms_eps=t.rms_eps, qk_norm=True,
-            pad_len=pad_len, window_split=window_split,
+            pad_len=pad_len, window_split=window_split, mesh=mesh,
         )
     hidden = rmsnorm(x, params["ln_f"], t.rms_eps)
     head_in = hidden[:, -1:, :] if head_last_only else hidden

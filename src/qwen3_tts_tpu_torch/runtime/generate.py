@@ -24,6 +24,15 @@ Eager PyTorch with the JAX package's structure:
   bucketed prefix of the KV cache.
 
 The KV caches and the codec's stream state are updated in place.
+
+Under tensor parallelism (``Generator(mesh=...)``, after
+``parallel.shard_model``) every rank runs this same loop on its shard:
+the talker and code predictor at local heads with local kv caches, one
+tp sum after each o and down projection, and everything after the sum
+(norms, heads, sampling, the codec) whole and equal on every rank. So
+every host decision (the chunk plan, EOS, the frame budget) is the same
+on every rank, as the ranks' collectives need; sampled decode seeds each
+rank's ``torch.Generator`` alike.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ..models.talker import (
 )
 from ..ops.grouped_qmv import grouped_layout, pack_grouped_tree
 from ..ops.pcm import wav_to_pcm16
+from ..parallel.sharding import cache_sharding, cp_mesh
 from .prompts import PromptSpec
 from .sampling import SamplingConfig, sample_token
 
@@ -86,24 +96,32 @@ def _has_lora(tree: Any) -> bool:
     return False
 
 
-def fuse_decode_params(cp_params: Any, codec_params: Any) -> tuple[Any, Any]:
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.tp > 1
+
+
+def fuse_decode_params(cp_params: Any, codec_params: Any,
+                       mesh=None) -> tuple[Any, Any]:
     """Fuse q/k/v -> qkv and gate/up -> gate_up in the code predictor's and
     the codec's latent-transformer blocks (fewer, larger products in their
     many small sequential steps; identical numerics). The talker keeps the
     split layout, as in the JAX package. Skipped when unmerged LoRA
-    adapters are present; idempotent."""
+    adapters are present; idempotent. Under a tp ``mesh`` the code
+    predictor keeps its split layout (a concatenated qkv of out-sharded
+    slices is not one head-local shard), as in the JAX package."""
     def fusable(blocks) -> bool:
         return (isinstance(blocks, dict) and "qkv" not in blocks["attn"]
                 and not _has_lora(blocks))
 
-    if fusable(cp_params.get("blocks")):
-        cp_params = {**cp_params,
-                     "blocks": fuse_block_projections(cp_params["blocks"])}
-    draft = cp_params.get("draft")
-    if draft is not None and fusable(draft.get("blocks")):
-        # freeze-base recovery's draft adapter runs the same decode path
-        cp_params = {**cp_params, "draft": {
-            **draft, "blocks": fuse_block_projections(draft["blocks"])}}
+    if not _sharded(mesh):
+        if fusable(cp_params.get("blocks")):
+            cp_params = {**cp_params, "blocks": fuse_block_projections(
+                cp_params["blocks"])}
+        draft = cp_params.get("draft")
+        if draft is not None and fusable(draft.get("blocks")):
+            # freeze-base recovery's draft adapter runs the same decode path
+            cp_params = {**cp_params, "draft": {
+                **draft, "blocks": fuse_block_projections(draft["blocks"])}}
     dec = codec_params.get("dec", {})
     if fusable(dec.get("tf_blocks")):
         codec_params = {**codec_params, "dec": {
@@ -111,12 +129,14 @@ def fuse_decode_params(cp_params: Any, codec_params: Any) -> tuple[Any, Any]:
     return cp_params, codec_params
 
 
-def group_quantized(*trees, device):
+def group_quantized(*trees, device, mesh=None):
     """Relayout every quantized linear into the grouped format of kernel A
     when the QWEN3_TTS_INT8_LAYOUT policy says so for ``device`` (auto =
     grouped on CUDA). Runs after fuse_decode_params so the fused qkv /
-    gate_up projections are grouped too; identity on dense trees."""
-    if not grouped_layout(device):
+    gate_up projections are grouped too; identity on dense trees. A tp
+    ``mesh``'s trees keep the split row-major layout, as in the JAX
+    package: kernel B runs every int8 linear at the shard shapes."""
+    if _sharded(mesh) or not grouped_layout(device):
         return trees if len(trees) > 1 else trees[0]
     out = tuple(pack_grouped_tree(t) for t in trees)
     return out if len(out) > 1 else out[0]
@@ -182,7 +202,7 @@ class GenerationResult:
 # stages
 # --------------------------------------------------------------------------
 
-def make_prefill_fn(cfg: ModelConfig) -> Callable:
+def make_prefill_fn(cfg: ModelConfig, mesh=None) -> Callable:
     t = cfg.talker
     S = cfg.max_seq_len
 
@@ -190,7 +210,7 @@ def make_prefill_fn(cfg: ModelConfig) -> Callable:
         cos_t, sin_t = rope_tables(S, t.head_dim, t.rope_theta, emb.device)
         hidden, logits, ck, cv = talker_forward(
             params, t, emb, cache_k, cache_v, 0, cos_t, sin_t,
-            pad_len=pad_len, head_last_only=True,
+            pad_len=pad_len, head_last_only=True, mesh=mesh,
         )
         return hidden[:, -1, :], logits[:, -1, :], ck, cv
 
@@ -225,7 +245,8 @@ def _hold_inactive(active, new, old):
 def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
                          sampling: SamplingConfig,
                          attn_len: int | None = None,
-                         window_split: tuple | None = None) -> Callable:
+                         window_split: tuple | None = None,
+                         mesh=None) -> Callable:
     """One chunk: ``chunk`` talker steps + batched residual prediction +
     incremental codec decode + PCM. Attention reads the first ``attn_len``
     cache slots (the caller guarantees pos + chunk <= attn_len for every
@@ -234,7 +255,8 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
     ONE chunk function serves both engines: ``Generator.stream`` passes int
     positions and counters and no ``active`` mask (every row decodes); the
     serving engine passes [B] tensors and its slot mask, and an inactive
-    slot holds its position and frame counter and emits ``codec_pad``."""
+    slot holds its position and frame counter and emits ``codec_pad``.
+    ``mesh``: the trees and caches are this rank's tp shard."""
     t = cfg.talker
     S = cfg.max_seq_len
     A = attn_len or S
@@ -244,6 +266,7 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
         raise ValueError(f"chunk {chunk} is not a multiple of fps {fps}")
     n_steps = chunk // fps
     cp_stoch = cp_samples(cfg, sampling)
+    cpm = cp_mesh(cfg, mesh)
 
     def decode_chunk(params, cp_params, codec_params, cache_k, cache_v,
                      cstate, pos, pad_len, n_frames, last_token, generator,
@@ -260,7 +283,7 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
             emb = merge_step_tokens(params, t, tok)[:, None, :]
             hidden, logits, _, _ = talker_forward(
                 params, t, emb, ck, cv, pos, cos_t, sin_t,
-                pad_len=pad_len, window_split=window_split,
+                pad_len=pad_len, window_split=window_split, mesh=mesh,
             )
             h = hidden[:, -1, :]
             frame = [sample_token(logits[:, -1, :], generator, sampling)]
@@ -283,7 +306,7 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
         flat_cb0 = tokens_bc.reshape(-1).clamp(0, cb_size - 1)
         residuals = predict_residuals(
             cp_params, cfg, flat_h, flat_cb0,
-            generator=generator if cp_stoch else None,
+            generator=generator if cp_stoch else None, mesh=cpm,
         )
         codes = torch.cat(
             [flat_cb0.reshape(B, chunk, 1),
@@ -303,7 +326,7 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
 
 def feedback_step_frames(params, cp_params, cfg: ModelConfig,
                          sampling: SamplingConfig, hidden, cb0, generator,
-                         dtype):
+                         dtype, mesh=None):
     """The fps frames of one residual_sum step after its first token:
     ``cb0`` [B] was drawn from the talker head at ``hidden`` [B, D];
     frames 1..fps-1 come through the MTP chain. Returns (tok [B, fps],
@@ -313,11 +336,12 @@ def feedback_step_frames(params, cp_params, cfg: ModelConfig,
     conditions frame j+1 on frame j's full feedback embedding (cb0 +
     residual sum). Under ``mtp_cp_batch`` the chain conditions on cb0
     embeddings alone, so ONE predictor pass covers all fps frames as
-    batch rows."""
+    batch rows. ``mesh``: the model's tp mesh (``Generator``)."""
     t = cfg.talker
     fps = t.frames_per_step
     cb = cfg.codec.codebook_size
     cp_gen = generator if cp_samples(cfg, sampling) else None
+    cpm = cp_mesh(cfg, mesh)
     codec_emb = params["codec_emb"]
     h = hidden
     if t.mtp_cp_batch and fps > 1:
@@ -333,13 +357,14 @@ def feedback_step_frames(params, cp_params, cfg: ModelConfig,
         res, rs = predict_residuals(
             cp_params, cfg, torch.stack(hs, dim=1).reshape(B * fps, -1),
             tok.reshape(-1).clamp(0, cb - 1), generator=cp_gen,
-            return_feedback=True)
+            return_feedback=True, mesh=cpm)
         return (tok, rs.reshape(B, fps, -1).to(dtype),
                 res.reshape(B, fps, -1))
     toks, rss, ress = [], [], []
     for j in range(fps):
         res, rs = predict_residuals(cp_params, cfg, h, cb0.clamp(0, cb - 1),
-                                    generator=cp_gen, return_feedback=True)
+                                    generator=cp_gen, return_feedback=True,
+                                    mesh=cpm)
         toks.append(cb0)
         rss.append(rs.to(dtype))
         ress.append(res)
@@ -352,7 +377,8 @@ def feedback_step_frames(params, cp_params, cfg: ModelConfig,
 
 
 def seed_feedback_frames(params, cp_params, cfg: ModelConfig,
-                         sampling: SamplingConfig, hidden, logits, generator):
+                         sampling: SamplingConfig, hidden, logits, generator,
+                         mesh=None):
     """The published protocol's seed step: frame 0 from the prefill
     logits, then ``feedback_step_frames``. hidden [B, D], logits [B, V] ->
     (tok [B, fps], feedback sums [B, fps, D], residual codes
@@ -360,7 +386,7 @@ def seed_feedback_frames(params, cp_params, cfg: ModelConfig,
     rendered."""
     cb0 = sample_token(logits, generator, sampling)
     return feedback_step_frames(params, cp_params, cfg, sampling, hidden,
-                                cb0, generator, hidden.dtype)
+                                cb0, generator, hidden.dtype, mesh)
 
 
 def trailing_lookup(trailing: torch.Tensor, g) -> torch.Tensor:
@@ -378,8 +404,8 @@ def trailing_lookup(trailing: torch.Tensor, g) -> torch.Tensor:
 def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
                                   sampling: SamplingConfig,
                                   attn_len: int | None = None,
-                                  window_split: tuple | None = None
-                                  ) -> Callable:
+                                  window_split: tuple | None = None,
+                                  mesh=None) -> Callable:
     """The published protocol's chunk (transformers
     Qwen3OmniMoeTalkerForConditionalGeneration.prepare_inputs_for_generation):
     each talker step consumes the SUM of the previous frame's codebook
@@ -387,7 +413,7 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
     code predictor's depth-d table) and one trailing-text row, so the code
     predictor runs once per frame inside the loop. Then the streaming codec
     and PCM, as the cb0 chunk (whose docstring says how both engines drive
-    it: ``active``, ``window_split``).
+    it: ``active``, ``window_split``, ``mesh``).
 
     At fps > 1 a talker pass emits fps frames (``feedback_step_frames``),
     each keeping its own feedback sum and trailing-text row, and the next
@@ -423,12 +449,12 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
             emb = merge_step_embs(params, t, prev + trail)[:, None, :]
             hidden, logits, _, _ = talker_forward(
                 params, t, emb, ck, cv, pos, cos_t, sin_t,
-                pad_len=pad_len, window_split=window_split,
+                pad_len=pad_len, window_split=window_split, mesh=mesh,
             )
             cb0 = sample_token(logits[:, -1, :], generator, sampling)
             frame_toks, rs_new, res = feedback_step_frames(
                 params, cp_params, cfg, sampling, hidden[:, -1, :], cb0,
-                generator, rs.dtype)
+                generator, rs.dtype, mesh)
             tok = _hold_inactive(active, frame_toks, t.codec_pad)  # [B, fps]
             rs = _hold_inactive(active, rs_new, rs)
             pos = _hold_inactive(active, pos + 1, pos)
@@ -476,15 +502,23 @@ class Generator:
     # adaptive chunk schedule (None = default_chunk_schedule); the last
     # entry repeats for the rest of the utterance
     chunk_schedule: tuple | None = None
+    # the tp mesh of trees that parallel.shard_model sliced (None: whole)
+    mesh: Any = None
 
     def __post_init__(self):
         t = self.cfg.talker
+        if self.mesh is not None and (self.mesh.plan.dp > 1
+                                      or self.mesh.plan.pp > 1):
+            raise ValueError(
+                f"decode shards over tp only, got mesh {self.mesh.shape}: "
+                "dp and pp are training's axes (ROADMAP item 15b)")
         self.device = _first_device(self.params)
         self.dtype = torch_dtype(self.cfg)
         self.cp_params, self.codec_params = fuse_decode_params(
-            self.cp_params, self.codec_params)
+            self.cp_params, self.codec_params, self.mesh)
         self.params, self.cp_params, self.codec_params = group_quantized(
-            self.params, self.cp_params, self.codec_params, device=self.device)
+            self.params, self.cp_params, self.codec_params, device=self.device,
+            mesh=self.mesh)
         # per-layer views for the Python layer loops (built once)
         self.params = {**self.params,
                        "blocks": unstack_layers(self.params["blocks"])}
@@ -509,14 +543,21 @@ class Generator:
             self.chunk_schedule, t.frames_per_step)
 
     def _prefill_fn(self):
-        return make_prefill_fn(self.cfg)
+        return make_prefill_fn(self.cfg, self.mesh)
+
+    def kv_shape(self, batch: int, length: int) -> tuple:
+        """This rank's talker cache shape [L, batch, length, H_kv, hd]
+        (the kv heads of its tp shard)."""
+        t = self.cfg.talker
+        shape = (t.n_layers, batch, length, t.n_kv_heads, t.head_dim)
+        if self.mesh is None:
+            return shape
+        return cache_sharding(self.mesh).local_shape(shape)
 
     def _alloc_cache(self, batch: int = 1):
         """The talker's K and V caches [L, batch, S, H_kv, hd]: dense, or
         ``KVQuant`` pairs under QWEN3_TTS_KV=int8 (read per utterance)."""
-        t = self.cfg.talker
-        shape = (t.n_layers, batch, self.cfg.max_seq_len, t.n_kv_heads,
-                 t.head_dim)
+        shape = self.kv_shape(batch, self.cfg.max_seq_len)
         return (kv_cache_init(shape, self.dtype, device=self.device),
                 kv_cache_init(shape, self.dtype, device=self.device))
 
@@ -744,7 +785,7 @@ class Generator:
         if feedback:
             tok, res_sum, _ = seed_feedback_frames(
                 self.params, self.cp_params, cfg, self.sampling, hidden_last,
-                logits, gen)                             # [1, fps], [1, fps, D]
+                logits, gen, self.mesh)                  # [1, fps], [1, fps, D]
             # the feedback carry holds the config's dtype, as in the JAX
             # package, also where imported float32 tables widen the hidden
             res_sum = res_sum.to(self.dtype)
@@ -765,14 +806,14 @@ class Generator:
             if feedback:
                 (cache_k, cache_v, cstate, pos, tok, n_frames_dev, res_sum, g,
                  n_valid, codes, wav) = make_decode_chunk_fn_feedback(
-                    cfg, chunk, self.sampling, A)(
+                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
                     self.params, self.cp_params, self.codec_params, cache_k,
                     cache_v, cstate, trailing, pos, pad, n_frames_dev, tok,
                     res_sum, g, gen)
             else:
                 (cache_k, cache_v, cstate, pos, tok, n_frames_dev, n_valid,
                  codes, wav) = make_decode_chunk_fn(
-                    cfg, chunk, self.sampling, A)(
+                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
                     self.params, self.cp_params, self.codec_params, cache_k,
                     cache_v, cstate, pos, pad, n_frames_dev, tok, gen)
             # ONE host read per chunk: valid count, codes and PCM packed

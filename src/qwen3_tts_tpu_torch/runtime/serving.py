@@ -34,6 +34,14 @@ Design (continuous batching, slot model):
 
 The decode-layout parameters are ``model.generator``'s (no second copy of
 the weights); sampling draws from one ``torch.Generator`` (``rng``).
+
+Over a tp mesh (``parallel.shard_model``) every rank runs this engine on
+its shard: the slot caches and prefill scratches hold its kv heads, and
+the per-slot state (positions, pads, tokens, trailing buffers, feedback
+sums) is replicated, as in the JAX package. Submissions, steps and
+retirements follow host values that are equal on every rank (the valid
+counts read after the tp sums), so the ranks admit, step and retire in
+lockstep when they are given the same calls.
 """
 
 from __future__ import annotations
@@ -204,6 +212,8 @@ class ServingEngine:
         gen = model.generator
         self.params, self.cp_params = gen.params, gen.cp_params
         self.codec_params = gen.codec_params
+        self.mesh = gen.mesh
+        self._kv_shape = gen.kv_shape
         self.device = gen.device
         self.dtype = dtype = gen.dtype
         self.B = max_streams
@@ -220,7 +230,7 @@ class ServingEngine:
                                                    self.fps)
         self.sampling = sampling or SamplingConfig()
         dev, B = self.device, self.B
-        shape = (t.n_layers, B, self.cfg.max_seq_len, t.n_kv_heads, t.head_dim)
+        shape = self._kv_shape(B, self.cfg.max_seq_len)
         # dense by default; QWEN3_TTS_KV=int8 stores the talker caches as
         # KVQuant pairs. The format is read once: the prefill scratch caches
         # must match the slot caches even if the variable changes mid-run
@@ -319,7 +329,7 @@ class ServingEngine:
                     else make_decode_chunk_fn)
             self._decode_fns[key] = make(self.cfg, chunk, self.sampling,
                                          attn_len=max(wins),
-                                         window_split=split)
+                                         window_split=split, mesh=self.mesh)
         return self._decode_fns[key]
 
     # -- stream lifecycle ---------------------------------------------------
@@ -419,8 +429,7 @@ class ServingEngine:
         while self._pending and not (self._live() and sliced):
             pp = self._pending[0]
             if pp.sk is None:
-                t = self.cfg.talker
-                shape = (t.n_layers, 1, pp.Lb, t.n_kv_heads, t.head_dim)
+                shape = self._kv_shape(1, pp.Lb)
                 pp.sk, pp.sv = self._kv_zeros(shape), self._kv_zeros(shape)
             C = min(self.prefill_chunk, pp.Lb - pp.pos)
             self._prefill_slice(pp, C)
@@ -441,7 +450,8 @@ class ServingEngine:
                                    t.rope_theta, self.device)
         hidden, logits, _, _ = talker_forward(
             self.params, t, pp.emb[:, pp.pos:pp.pos + C], pp.sk, pp.sv,
-            pp.pos, cos_t, sin_t, pad_len=pp.pad, head_last_only=True)
+            pp.pos, cos_t, sin_t, pad_len=pp.pad, head_last_only=True,
+            mesh=self.mesh)
         pp.last_logits, pp.last_hidden = logits[:, -1], hidden[:, -1]
 
     def _batch_cold_prefills(self) -> None:
@@ -462,14 +472,15 @@ class ServingEngine:
             nb = len(group)
             if nb < 2 or nb * Lb > max_rows:
                 continue
-            shape = (t.n_layers, nb, Lb, t.n_kv_heads, t.head_dim)
+            shape = self._kv_shape(nb, Lb)
             sk, sv = self._kv_zeros(shape), self._kv_zeros(shape)
             pads = torch.tensor([pp.pad for pp in group], device=self.device)
             cos_t, sin_t = rope_tables(self.cfg.max_seq_len, t.head_dim,
                                        t.rope_theta, self.device)
             hidden, logits, _, _ = talker_forward(
                 self.params, t, torch.cat([pp.emb for pp in group]), sk, sv,
-                0, cos_t, sin_t, pad_len=pads, head_last_only=True)
+                0, cos_t, sin_t, pad_len=pads, head_last_only=True,
+                mesh=self.mesh)
             trailing = (torch.cat([pp.trailing for pp in group])
                         if self.feedback else None)
             for pp in group:
@@ -490,7 +501,7 @@ class ServingEngine:
         if self.feedback:
             first, rs, _ = seed_feedback_frames(
                 self.params, self.cp_params, self.cfg, self.sampling, hidden,
-                logits, self.rng)
+                logits, self.rng, self.mesh)
         else:
             first = seed_tokens(self.params, self.cfg, self.sampling, hidden,
                                 logits, self.rng)           # [nb, fps]

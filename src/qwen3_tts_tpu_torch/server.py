@@ -877,11 +877,18 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
 
 
+class _Server(ThreadingHTTPServer):
+    # clients that connect at once wait in the listen backlog while the
+    # accept loop shares the interpreter with the decode thread;
+    # socketserver's backlog of 5 overflows when 8 connect together
+    request_queue_size = 128
+
+
 def make_server(
     service: TTSService, host: str = "127.0.0.1", port: int = 8080
 ) -> ThreadingHTTPServer:
     handler = type("BoundHandler", (_Handler,), {"service": service})
-    return ThreadingHTTPServer((host, port), handler)
+    return _Server((host, port), handler)
 
 
 def model_device() -> str:

@@ -541,3 +541,22 @@ def test_synthetic_daemon_models_and_their_frames_per_step(name, fps,
     if name == "synthetic":
         assert cfg.talker.hidden == jcfgs.flagship().talker.hidden
         assert cfg == tcfgs.flagship("design", frames_per_step=2)
+
+
+def test_clients_that_connect_at_once_all_wait_in_the_backlog():
+    """Twelve clients connect while the listener accepts none (as when the
+    decode thread holds the interpreter): each connect completes in the
+    listen backlog; socketserver's default backlog of 5 drops the rest."""
+    import socket
+
+    srv = make_server(None, port=0)
+    socks = []
+    try:
+        for _ in range(12):
+            s = socket.create_connection(srv.server_address, timeout=2)
+            socks.append(s)
+    finally:
+        for s in socks:
+            s.close()
+        srv.server_close()
+    assert len(socks) == 12

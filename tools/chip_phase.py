@@ -1,0 +1,46 @@
+#!/usr/bin/env python3
+"""One phase of ``chip_smoke.py`` alone on one NVIDIA GPU: phase ``build``,
+then the named phase, with the script's float rules.
+
+    python3 tools/chip_phase.py parallel
+
+``parallel`` runs ``phase_parallel`` with no kernel shape checked before
+it (so it holds every kernel B shape of its ranks against the plain
+version) and prints its launches, shapes and seconds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("phase", choices=("parallel",))
+    ap.parse_args()
+
+    import torch
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    chip_smoke.phase_build()
+    t0 = time.perf_counter()
+    counts, shapes = chip_smoke.phase_parallel(torch, {})
+    chip_smoke.log({"phase": "parallel", "step": "alone", "launches": counts,
+                    "shapes": {k: len(v) for k, v in shapes.items()},
+                    "phase_s": time.perf_counter() - t0})
+
+
+if __name__ == "__main__":
+    main()
