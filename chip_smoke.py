@@ -169,7 +169,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    frames, RTF from the WAV's length, peak memory, kernel A launches a
    frame);
 17. phase ``parallel`` (parallel/: tensor-parallel decode over
-   torch.distributed), last: two ranks on cuda:0 over gloo (NCCL needs a
+   torch.distributed): two ranks on cuda:0 over gloo (NCCL needs a
    card a rank), started by parallel.comm.launch after phase 1 built the
    kernels. Step ``tiny_f32``: the tiny residual_sum + code2wav model
    (int8 weights, float32) at tp 2, a 16-frame synthesis and four serving
@@ -185,7 +185,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    frame and shapes, all_reduce calls a frame, their host seconds and the
    seconds spent first waiting for the card, peak memory, RTF and
    aggregate RTF (no speed claimed: the host-staged gloo
-   sum sets the pace).
+   sum sets the pace);
+18. phase ``train_parallel`` (parallel training: pipeline.py, the
+   autograd collectives of comm.py, training/ over a mesh), last: eight
+   ranks on cuda:0 over gloo, the dry run's pp2 dp2 tp2 mesh with
+   sequence parallelism and 4 microbatches. Step ``tiny_f32``: the tiny
+   config at float32 from numpy trees, one step held against the same
+   trees' one-rank step on the CPU (loss, grad norm, every gathered
+   updated leaf within TRAIN_PAR_*_TOL), then a checkpoint round trip
+   (saved gathered on rank 0, restored into other trees on the mesh, the
+   next step's loss equal to the uninterrupted one's). Step
+   ``flagship_bf16``: the dense flagship at full width (each rank draws
+   the tree leaf by leaf and keeps its slice), batch 8, two steps: the
+   first's loss and grad norm against a one-rank step of the same tree on
+   the card (TRAIN_PAR_BF16_*_RTOL, the differences printed), finite
+   losses, kernels A and B never launched; per rank s/step, tp sums, SP
+   gathers and pp shifts a step with their host seconds, peak memory.
+   Step ``finetune``: finetune.main on two ranks (tp 2) on the dense
+   flagship, two steps, its export decoded in this process.
 
 Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
@@ -246,7 +263,8 @@ REPRESENTATIVE = (1, 6144, 2048)  # (M, N, K) reported in the kernels line
 TALKER_FRAME = {(2048, 2048): 56, (1024, 2048): 56, (6144, 2048): 56,
                 (2048, 6144): 28, (2051, 2048): 1}
 MAIN_FRAMES = 64  # frames of the measured main-path run
-# cuts for the 400 s budget (phase train added ~40 s): the imported
+# cuts for the script's budget (400 s until phase train_parallel, 600 s
+# since; phase train added ~40 s): the imported
 # snapshot's main path repeats flagship_feedback_code2wav's geometry, the
 # asr quality step is not gated, and run_batch needs no eight items to show
 # its framing
@@ -265,7 +283,7 @@ START = time.perf_counter()
 
 def log(obj) -> None:
     """One output line; a dict gets ``t_s``, the script's seconds so far
-    (where the 400 s budget goes)."""
+    (where the 600 s budget goes)."""
     if isinstance(obj, dict):
         obj = {**obj, "t_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
@@ -511,12 +529,13 @@ def main() -> None:
     asr_snapshot.cleanup()
     phase_train(torch)
     par_counts, par_ran = phase_parallel(torch, checked)
+    train_par_counts = phase_train_parallel(torch)
     for run_shapes in (app_ran, mtp_ran, ran, server_ran, par_ran):
         for name, run in run_shapes.items():
             shapes.setdefault(name, set()).update(run)
     launches = {name: launches[name] + app_counts[name] + mtp_counts[name]
                 + counts[name] + server_counts[name] + par_counts[name]
-                for name in launches}
+                + train_par_counts[name] for name in launches}
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -3055,13 +3074,13 @@ def parallel_rank(device, tiny_prompts) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_kernels.reset_launch_counts()
-    comm.reset_all_reduce_stats()
+    comm.reset_stats()
     run = _parallel_decode(model, prompts, PARALLEL_FRAMES,
                            [PARALLEL_SERVING_FRAMES] * SERVING_STREAMS,
                            SERVING_STREAMS)
     run["launches"] = {k.name: k.launches for k in cuda_kernels.KERNELS}
     run["shapes"] = {k.name: sorted(k.shapes) for k in cuda_kernels.KERNELS}
-    run["all_reduce"] = dict(comm.ALL_REDUCE)
+    run["all_reduce"] = dict(comm.STATS["tp_sum"])
     run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / GB
     run["step_s"] = time.perf_counter() - t_step
     out["flagship_bf16"] = run
@@ -3208,6 +3227,423 @@ def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
     counts = {name: sum(run["launches"][name] for run in runs)
               for name in runs[0]["launches"]}
     return counts, shapes
+
+# --------------------------------------------------------------------------
+# phase train_parallel: parallel training over torch.distributed
+# --------------------------------------------------------------------------
+
+# eight ranks share the one card, over gloo (as phase parallel); the mesh
+# and microbatches of the dry run (parallel/dryrun.py), sp on
+TRAIN_PAR_RANKS = 8
+TRAIN_PAR_PLAN = (2, 2, 2)              # (pp, dp, tp)
+TRAIN_PAR_MICRO = 4
+TRAIN_PAR_TINY_BATCH = (8, 8, 6)        # rows, text tokens, frames
+TRAIN_PAR_FLAGSHIP_BATCH = (8, 16, 24)
+TRAIN_PAR_STEPS = 2                     # flagship_bf16
+# tiny_f32, the card's eight ranks against one CPU rank: the same float32
+# arithmetic summed in another order (tp partial sums, microbatches, the
+# dp and pp sums of the grads; as tests/test_torch_parallel_training.py)
+TRAIN_PAR_LOSS_RTOL = 1e-5
+TRAIN_PAR_NORM_RTOL = 1e-4
+TRAIN_PAR_LEAF_TOL = 1e-4               # of each leaf's max|.|
+# flagship_bf16, eight ranks against one on the card: bf16 activations
+# rounded at other points (each tp partial sum, the microbatch shapes), a
+# 2^-9 relative rounding compounded over 28 blocks; the loss averages
+# 8 x 40 rows, the grad norm weighs the largest grads
+TRAIN_PAR_BF16_LOSS_RTOL = 1e-2
+TRAIN_PAR_BF16_NORM_RTOL = 5e-2
+TRAIN_PAR_FT_RANKS = 2
+
+
+def _train_par_tiny():
+    import dataclasses
+
+    from qwen3_tts_tpu_torch.engine import configs
+
+    return dataclasses.replace(configs.tiny("custom"), dtype="float32")
+
+
+def _train_par_flagship():
+    from qwen3_tts_tpu_torch.engine import configs
+
+    return configs.with_quant(configs.flagship(), False)
+
+
+def _train_par_plan():
+    from qwen3_tts_tpu_torch.parallel import MeshPlan
+
+    pp, dp, tp = TRAIN_PAR_PLAN
+    return MeshPlan(dp=dp, tp=tp, pp=pp)
+
+
+def _host_leaves(tree) -> dict:
+    from qwen3_tts_tpu_torch.training.train import tree_leaves
+
+    return {k: v.detach().float().cpu().clone() for k, v in tree_leaves(tree)}
+
+
+def _comm_delta(before: dict, after: dict) -> dict:
+    return {kind: {k: after[kind][k] - before[kind][k]
+                   for k in ("calls", "host_s", "sync_s")}
+            for kind in after}
+
+
+def train_parallel_rank(device, tiny_trees, batches, ckpt_dir) -> dict:
+    """One rank of phase ``train_parallel`` (started by
+    parallel.comm.launch; it prints nothing and raises on any fault)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from qwen3_tts_tpu_torch.models.code_predictor import init_code_predictor
+    from qwen3_tts_tpu_torch.models.talker import init_talker
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.parallel import build_mesh, comm
+    from qwen3_tts_tpu_torch.parallel.mesh import validate_tp
+    from qwen3_tts_tpu_torch.parallel.sharding import (
+        gather_params, layer_keeper, shard_for_training, training_specs)
+    from qwen3_tts_tpu_torch.training import (
+        default_optimizer, init_train_state, make_train_step)
+    from qwen3_tts_tpu_torch.training.checkpoint import (
+        restore_train_state, save_train_state)
+    from qwen3_tts_tpu_torch.training.train import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    mesh = build_mesh(_train_par_plan(), device)
+    out = {"rank": mesh.rank, "coords": list(mesh.coords)}
+
+    def trained(cfg, p, cp):
+        # eight ranks share the card: AdamW updates one leaf at a time,
+        # without its multi-tensor temporaries (a rank's whole state again)
+        opt = dataclasses.replace(default_optimizer(), foreach=False)
+        state = init_train_state(p, cp, opt, mesh=mesh)
+        step = make_train_step(cfg, opt, mesh=mesh, sequence_parallel=True,
+                               microbatches=TRAIN_PAR_MICRO)
+        return state, step
+
+    def whole(state):
+        specs = training_specs(state.params, state.cp_params, mesh)
+        trees = [gather_params(state.params, mesh, specs[0]),
+                 gather_params(state.cp_params, mesh, specs[1])]
+        return None if trees[0] is None else _host_leaves(trees)
+
+    # tiny_f32: one step, then a checkpoint round trip into trees of other
+    # values
+    t0 = time.perf_counter()
+    cfg = _train_par_tiny()
+    state, step = trained(cfg, *shard_for_training(
+        cfg, *copy.deepcopy(tiny_trees), mesh))
+    state, m = step(state, batches["tiny"][0])
+    tiny = {"metrics": {k: float(v) for k, v in m.items()},
+            "leaves": whole(state)}
+    path = save_train_state(state, ckpt_dir)
+    _, m_cont = step(state, batches["tiny"][1])
+    halves = [tree_map(lambda x: x * 0.5, t) for t in tiny_trees]
+    fresh, _ = trained(cfg, *shard_for_training(cfg, *halves, mesh))
+    restored = restore_train_state(path, fresh)
+    tiny["restored_step"] = restored.step
+    _, m_res = step(restored, batches["tiny"][1])
+    tiny.update(loss_cont=float(m_cont["loss"]),
+                loss_restored=float(m_res["loss"]),
+                step_s=time.perf_counter() - t0)
+    out["tiny_f32"] = tiny
+    del state, restored, fresh
+
+    # flagship_bf16: each rank draws the tree leaf by leaf on the card and
+    # keeps its slice (no rank holds the whole talker)
+    t0 = time.perf_counter()
+    cfg = _train_par_flagship()
+    validate_tp(cfg, mesh.tp)
+    p = init_talker(cfg, 0, device=device,
+                    keep=layer_keeper(mesh, cfg.talker.n_layers))
+    cp = init_code_predictor(cfg, 1, device=device)
+    state, step = trained(cfg, p, cp)
+    del p, cp
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    comm.reset_stats()
+    steps = []
+    for batch in batches["flagship"]:
+        before = copy.deepcopy(comm.STATS)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, m = step(state, batch)
+        metrics = {k: float(v) for k, v in m.items()}   # waits for the card
+        torch.cuda.synchronize()
+        steps.append({**metrics, "step_s": time.perf_counter() - ts,
+                      "comm": _comm_delta(before, comm.STATS)})
+    out["flagship_bf16"] = {
+        "steps": steps, "init_s": init_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / GB,
+        "resident_gb": torch.cuda.memory_allocated() / GB,
+        "launches": {k.name: k.launches for k in cuda_kernels.KERNELS}}
+    return out
+
+
+def train_parallel_finetune_rank(device, argv) -> dict:
+    """One rank of phase ``train_parallel``'s step ``finetune``: its
+    stdout (rank 0's holds the summary), finetune_step lines, launches."""
+    import contextlib
+    import io
+
+    from qwen3_tts_tpu_torch import finetune
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    cuda_kernels.reset_launch_counts()
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+        rc = finetune.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"finetune {argv}: exit {rc}: "
+                           f"{stderr.getvalue()[-3000:]}")
+    return {"stdout": stdout.getvalue(), "wall_s": time.perf_counter() - t0,
+            "steps": [json.loads(ln) for ln in stderr.getvalue().splitlines()
+                      if '"finetune_step"' in ln],
+            "launches": {k.name: k.launches for k in cuda_kernels.KERNELS}}
+
+
+def _one_rank_step(torch, cfg, p, cp, batch,
+                   leaves: bool = True) -> tuple[dict, dict | None]:
+    """One default_optimizer step of whole trees on their device: the
+    metrics (and step seconds) and, with ``leaves``, the updated leaves on
+    the host."""
+    from qwen3_tts_tpu_torch.training import (
+        default_optimizer, init_train_state, make_train_step)
+
+    opt = default_optimizer()
+    state = init_train_state(p, cp, opt)
+    t0 = time.perf_counter()
+    state, m = make_train_step(cfg, opt)(state, batch)
+    metrics = {k: float(v) for k, v in m.items()}   # waits for the card
+    metrics["step_s"] = time.perf_counter() - t0
+    return metrics, (_host_leaves([state.params, state.cp_params])
+                     if leaves else None)
+
+
+def _close(got: float, want: float, rtol: float) -> bool:
+    return math.isfinite(got) and abs(got - want) <= rtol * abs(want)
+
+
+def _train_par_tiny_check(rk: dict, cpu: dict, cpu_leaves: dict) -> dict:
+    """Rank 0's tiny_f32 step against the CPU's one-rank step."""
+    got = rk["tiny_f32"]
+    m = got["metrics"]
+    for key, rtol in (("talker_loss", TRAIN_PAR_LOSS_RTOL),
+                      ("cp_loss", TRAIN_PAR_LOSS_RTOL),
+                      ("loss", TRAIN_PAR_LOSS_RTOL),
+                      ("grad_norm", TRAIN_PAR_NORM_RTOL)):
+        if not _close(m[key], cpu[key], rtol):
+            fail(f"train_parallel tiny_f32: {key} {m[key]} on 8 ranks vs "
+                 f"{cpu[key]} on one CPU rank (rtol {rtol})")
+    leaves = got["leaves"]
+    if leaves.keys() != cpu_leaves.keys():
+        fail("train_parallel tiny_f32: the gathered trees differ in "
+             "structure from the one-rank trees")
+    worst, worst_leaf = 0.0, None
+    for k, want in cpu_leaves.items():
+        err = float((leaves[k] - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_leaf = rel, k
+    if worst > TRAIN_PAR_LEAF_TOL:
+        fail(f"train_parallel tiny_f32: leaf {worst_leaf} off by {worst} of "
+             f"its max (bound {TRAIN_PAR_LEAF_TOL})")
+    if got["restored_step"] != 1 or not _close(
+            got["loss_restored"], got["loss_cont"], TRAIN_PAR_LOSS_RTOL):
+        fail(f"train_parallel tiny_f32: restored step {got['restored_step']}"
+             f", next loss {got['loss_restored']} vs uninterrupted "
+             f"{got['loss_cont']}")
+    return {"loss": m["loss"], "cpu_loss": cpu["loss"],
+            "grad_norm": m["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
+            "loss_rtol": TRAIN_PAR_LOSS_RTOL,
+            "norm_rtol": TRAIN_PAR_NORM_RTOL, "leaves": len(cpu_leaves),
+            "worst_leaf_rel_err": worst, "worst_leaf": worst_leaf,
+            "leaf_tol": TRAIN_PAR_LEAF_TOL,
+            "ckpt_next_loss": [got["loss_cont"], got["loss_restored"]],
+            "step_s": got["step_s"]}
+
+
+def _comm_row(steps: list) -> dict:
+    """Each collective kind's calls a step and host seconds (and card-wait
+    seconds before them) in each step."""
+    kinds = steps[0]["comm"]
+    return {kind: {"calls": [s["comm"][kind]["calls"] for s in steps],
+                   "host_s": [s["comm"][kind]["host_s"] for s in steps],
+                   "sync_s": [s["comm"][kind]["sync_s"] for s in steps]}
+            for kind in kinds}
+
+
+def _bottleneck(step: dict) -> list:
+    """[the largest share of a flagship step's seconds, the share]: each
+    collective kind's host and card-wait seconds, or the rest (compute
+    and its launches)."""
+    spent = {kind: c["host_s"] + c["sync_s"] for kind, c in step["comm"].items()}
+    spent["rest"] = max(step["step_s"] - sum(spent.values()), 0.0)
+    first = max(spent, key=spent.get)
+    return [first, spent[first] / step["step_s"]]
+
+
+def phase_train_parallel(torch) -> dict:
+    """Parallel training at pp2 dp2 tp2 + sp on one card (module docstring,
+    phase 18). Returns the kernels' launches in the phase (both 0: training
+    is dense)."""
+    import copy
+    import gc
+    import shutil
+
+    from qwen3_tts_tpu_torch.models.code_predictor import init_code_predictor
+    from qwen3_tts_tpu_torch.models.talker import init_talker
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+    from qwen3_tts_tpu_torch.parallel import launch
+    from qwen3_tts_tpu_torch.training.train import synthetic_batch
+
+    t_phase = time.perf_counter()
+    where = {"backend": PARALLEL_BACKEND, "device": PARALLEL_DEVICE,
+             "ranks": TRAIN_PAR_RANKS,
+             "mesh": dict(zip(("pp", "dp", "tp"), TRAIN_PAR_PLAN)),
+             "sp": True, "microbatches": TRAIN_PAR_MICRO}
+    cuda_kernels.reset_launch_counts()
+    tiny_cfg, big_cfg = _train_par_tiny(), _train_par_flagship()
+    batches = {"tiny": [synthetic_batch(tiny_cfg, *TRAIN_PAR_TINY_BATCH,
+                                        seed=s) for s in (0, 1)],
+               "flagship": [synthetic_batch(big_cfg,
+                                            *TRAIN_PAR_FLAGSHIP_BATCH, seed=s)
+                            for s in range(TRAIN_PAR_STEPS)]}
+    # numpy draws on the host (the JAX package's values): the ranks and
+    # the CPU reference start from copies of these trees
+    tiny_trees = (init_talker(tiny_cfg, 0), init_code_predictor(tiny_cfg, 1))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # tiny CPU steps are op-overhead bound
+    try:
+        cpu, cpu_leaves = _one_rank_step(
+            torch, tiny_cfg, *copy.deepcopy(tiny_trees), batches["tiny"][0])
+    finally:
+        torch.set_num_threads(threads)
+    # the flagship's one-rank step on the card, freed before the ranks start
+    torch.cuda.reset_peak_memory_stats()
+    one, _ = _one_rank_step(torch, big_cfg,
+                            init_talker(big_cfg, 0, device="cuda"),
+                            init_code_predictor(big_cfg, 1, device="cuda"),
+                            batches["flagship"][0], leaves=False)
+    one["peak_mem_gb"] = torch.cuda.max_memory_allocated() / GB
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = tempfile.mkdtemp(prefix="q3tts_train_par_")
+    # eight allocators share the card: segments that grow in place instead
+    # of cached blocks of every size each rank once needed
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        ranks = launch(train_parallel_rank, TRAIN_PAR_RANKS,
+                       backend=PARALLEL_BACKEND, device=PARALLEL_DEVICE,
+                       args=(tiny_trees, batches, ckpt))
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+    row = _train_par_tiny_check(ranks[0], cpu, cpu_leaves)
+    log({"phase": "train_parallel", "step": "tiny_f32", **where,
+         "config": "tiny, float32", "batch": list(TRAIN_PAR_TINY_BATCH),
+         **row})
+    counts = {k.name: 0 for k in cuda_kernels.KERNELS}
+    first = ranks[0]["flagship_bf16"]["steps"][0]
+    for rk in ranks:
+        run = rk["flagship_bf16"]
+        losses = [s["loss"] for s in run["steps"]]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train_parallel flagship_bf16 rank {rk['rank']}: losses "
+                 f"{losses}")
+        if run["steps"][0]["loss"] != first["loss"] or \
+                run["steps"][0]["grad_norm"] != first["grad_norm"]:
+            fail(f"train_parallel flagship_bf16 rank {rk['rank']}: metrics "
+                 f"{run['steps'][0]} differ from rank 0's {first}")
+        for name, n in run["launches"].items():
+            counts[name] += n
+        log({"phase": "train_parallel", "step": "flagship_bf16", **where,
+             "rank": rk["rank"], "coords": rk["coords"],
+             "config": "flagship, dense bf16",
+             "batch": list(TRAIN_PAR_FLAGSHIP_BATCH),
+             "s_per_step": [s["step_s"] for s in run["steps"]],
+             "losses": losses,
+             "grad_norms": [s["grad_norm"] for s in run["steps"]],
+             "comm": _comm_row(run["steps"]),
+             "bottleneck": [_bottleneck(s) for s in run["steps"]],
+             "peak_mem_gb": run["peak_mem_gb"],
+             "resident_gb": run["resident_gb"], "init_s": run["init_s"],
+             "launches": run["launches"]})
+    diffs = {k: abs(first[k] - one[k]) / abs(one[k])
+             for k in ("loss", "grad_norm")}
+    log({"phase": "train_parallel", "step": "flagship_bf16_vs_one_rank",
+         **where, "loss": first["loss"], "one_rank_loss": one["loss"],
+         "loss_rel_diff": diffs["loss"],
+         "loss_rtol": TRAIN_PAR_BF16_LOSS_RTOL,
+         "grad_norm": first["grad_norm"],
+         "one_rank_grad_norm": one["grad_norm"],
+         "grad_norm_rel_diff": diffs["grad_norm"],
+         "norm_rtol": TRAIN_PAR_BF16_NORM_RTOL,
+         "one_rank_step_s": one["step_s"],
+         "one_rank_peak_mem_gb": one["peak_mem_gb"]})
+    if diffs["loss"] > TRAIN_PAR_BF16_LOSS_RTOL or \
+            diffs["grad_norm"] > TRAIN_PAR_BF16_NORM_RTOL:
+        fail(f"train_parallel flagship_bf16: first step {first} vs one "
+             f"rank {one}")
+    _check_no_launches("train_parallel", counts)
+
+    with tempfile.TemporaryDirectory(prefix="q3tts_train_par_ft_") as tmp:
+        data = os.path.join(tmp, "data")
+        export = os.path.join(tmp, "export")
+        write_train_pairs(data)
+        os.environ["QWEN3_TTS_METRICS"] = "1"
+        t0 = time.perf_counter()
+        try:
+            ft = launch(train_parallel_finetune_rank, TRAIN_PAR_FT_RANKS,
+                        backend=PARALLEL_BACKEND, device=PARALLEL_DEVICE,
+                        args=(["--model", "synthetic", "--data", data,
+                               "--steps", "2", "--batch-size", "4",
+                               "--export", export],))
+        finally:
+            os.environ.pop("QWEN3_TTS_METRICS")
+        ft_s = time.perf_counter() - t0
+        summary = json.loads(ft[0]["stdout"].strip().splitlines()[-1])
+        mesh_line = next((ln for ln in ft[0]["stdout"].splitlines()
+                          if ln.startswith("fine-tune:")), "")
+        for rk in ft:
+            for name, n in rk["launches"].items():
+                counts[name] += n
+        if "mesh pp=1 dp=1 tp=2" not in mesh_line or not all(
+                math.isfinite(x) for x in (summary["first_loss"],
+                                           summary["final_loss"])):
+            fail(f"train_parallel finetune: {mesh_line!r}, {summary}")
+        row = _decode_export(torch, export, "train_parallel finetune")
+    log({"phase": "train_parallel", "step": "finetune", **where,
+         "ranks": TRAIN_PAR_FT_RANKS, "mesh": {"pp": 1, "dp": 1, "tp": 2},
+         "model": "synthetic", "config": "flagship, dense bf16",
+         "steps": len(ft[0]["steps"]),
+         "s_per_step": [s["step_s"] for s in ft[0]["steps"]],
+         "losses": [s["loss"] for s in ft[0]["steps"]],
+         "finetune_wall_s": ft[0]["wall_s"], "launch_s": ft_s, **row,
+         "launches": {k: sum(rk["launches"][k] for rk in ft)
+                      for k in ft[0]["launches"]}})
+    _check_no_launches("train_parallel", counts)
+    log({"phase": "train_parallel", "step": "summary", **where,
+         "launch_s": launch_s, "phase_s": time.perf_counter() - t_phase,
+         "note": "no speed claimed: eight ranks share one card and every "
+                 "collective goes through host memory"})
+    return counts
+
 
 if __name__ == "__main__":
     main()

@@ -1,5 +1,5 @@
 """Fine-tuning CLI: adapt a model to a directory of (wav, txt) pairs (the
-JAX package's finetune.py, on one device).
+JAX package's finetune.py).
 
 Takes the voice-library layout the app already produces (``<name>.wav`` +
 ``<name>.txt`` pairs, voices.py) and fine-tunes the talker + code
@@ -18,11 +18,24 @@ Run as::
 It trains on the CUDA device, or on the CPU with QWEN3_TTS_CPU=1.
 Batches bucket by (text, frame) length (training/data.py ladders;
 examples are length-sorted before grouping so padding waste stays low),
-and a trailing incomplete batch is dropped. Training across several
-devices (``--pp``, ``--sequence-parallel``, a dp/tp mesh) is ROADMAP item
-15: the device-count checks below see one device. QWEN3_TTS_METRICS=1
-prints one ``finetune_step`` JSON line a step on stderr (loss, grad norm,
+and a trailing incomplete batch is dropped. QWEN3_TTS_METRICS=1 prints
+one ``finetune_step`` JSON line a step on stderr (loss, grad norm,
 seconds, real frames; on the card the memory allocated after the step).
+
+Across ranks: under an initialised process group (``parallel.comm.
+launch``) every rank runs ``main`` with the same arguments, and the mesh
+spans the world as the JAX CLI's spans its devices: ``--pp`` stages, then
+``auto_plan`` of the rest (tp up to the kv-head count, dp the remainder).
+Each rank trains on ``torch.cuda.current_device()`` (the CPU under
+QWEN3_TTS_CPU=1) and takes its dp rows of every batch; rank 0 alone
+logs, saves (the gathered checkpoint) and exports. Under ``torchrun``
+(``WORLD_SIZE`` > 1) ``main`` initialises the group from the environment
+with the backend ``--backend`` names, which is then required (the JAX CLI
+has no such flag: XLA picks its transport)::
+
+    torchrun --nproc-per-node 8 -m qwen3_tts_tpu_torch.finetune \\
+        --model <ckpt> --data voices/ --pp 2 --sequence-parallel \\
+        --backend nccl
 """
 
 from __future__ import annotations
@@ -164,8 +177,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--lora", type=int, default=0, metavar="RANK",
                     help="LoRA rank (0 = full fine-tune)")
     ap.add_argument("--pp", type=int, default=1, metavar="STAGES",
-                    help="pipeline-parallel stages (full fine-tune only; "
-                    "the port trains on one device: ROADMAP item 15)")
+                    help="pipeline-parallel stages (full fine-tune only); "
+                    "must divide the rank count and n_layers")
     ap.add_argument("--microbatches", type=int, default=0,
                     help="pipeline microbatches (default 4*pp); the batch "
                     "size must divide by it")
@@ -210,6 +223,9 @@ def main(argv: list[str] | None = None) -> int:
                     "sequential fps=1/dg=1 teacher-forced path (talker + "
                     "code predictor). Costs two extra teacher-forced "
                     "forwards per step; full fine-tune only")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend under torchrun (required "
+                    "when WORLD_SIZE > 1; nccl: one card a rank)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (enables save/resume)")
@@ -232,10 +248,45 @@ def main(argv: list[str] | None = None) -> int:
                     help="how many training transcripts to evaluate on")
     args = ap.parse_args(argv)
 
-    device = ("cpu" if os.environ.get("QWEN3_TTS_CPU", "0") not in ("", "0")
-              else "cuda")
-
     import torch
+    import torch.distributed as dist
+
+    cpu = os.environ.get("QWEN3_TTS_CPU", "0") not in ("", "0")
+    own_group = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        if args.backend is None:
+            print("error: --backend {nccl,gloo} is required when WORLD_SIZE "
+                  "> 1 (torchrun): the process group's backend is never "
+                  "guessed", file=sys.stderr)
+            return 1
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(args.backend)
+        own_group = True
+    elif dist.is_initialized() and args.backend not in (None,
+                                                        dist.get_backend()):
+        print(f"error: --backend {args.backend}, but the process group "
+              f"runs {dist.get_backend()}", file=sys.stderr)
+        return 1
+    try:
+        return _main(args, cpu)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _main(args, cpu: bool) -> int:
+    import torch
+    import torch.distributed as dist
+
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    rank0 = n_dev == 1 or dist.get_rank() == 0
+    device = "cpu" if cpu else (
+        "cuda" if n_dev == 1 else f"cuda:{torch.cuda.current_device()}")
+
+    def say(*a, **kw) -> None:
+        if rank0:
+            print(*a, **kw)
 
     from .engine import configs
     from .engine.api import Qwen3TTSModel, load_model
@@ -250,6 +301,11 @@ def main(argv: list[str] | None = None) -> int:
         latest_checkpoint,
         restore_train_state,
         save_train_state,
+    )
+    from .parallel.sharding import (
+        gather_params,
+        shard_for_training,
+        training_specs,
     )
     from .training.data import batches_from_pairs
     from .training.train import clone_tree, freeze_tree
@@ -343,22 +399,33 @@ def main(argv: list[str] | None = None) -> int:
               "pipeline schedule is what consumes microbatches)",
               file=sys.stderr)
         return 1
-    # one device: multi-device training is ROADMAP item 15
-    n_dev = 1
     if args.pp > 1 and (n_dev % args.pp or cfg.talker.n_layers % args.pp):
         print(f"error: --pp {args.pp} must divide both the device count "
               f"({n_dev}) and n_layers ({cfg.talker.n_layers})",
               file=sys.stderr)
         return 1
-    dp, tp = n_dev, 1
-    if args.batch_size % dp:
+    from .parallel.mesh import MeshPlan, auto_plan, build_mesh
+
+    inner = auto_plan(n_dev // args.pp, tp_divisors=cfg.talker.n_kv_heads)
+    plan = MeshPlan(dp=inner.dp, tp=inner.tp, pp=args.pp)
+    microbatches = (args.microbatches or 4 * plan.pp) if plan.pp > 1 else 0
+    if args.batch_size % plan.dp:
         print(f"error: --batch-size {args.batch_size} must divide "
-              f"dp={dp}", file=sys.stderr)
+              f"dp={plan.dp}", file=sys.stderr)
         return 1
-    if args.sequence_parallel and tp <= 1:
+    if microbatches and args.batch_size % microbatches:
+        print(f"error: --batch-size {args.batch_size} must divide into "
+              f"--microbatches {microbatches}", file=sys.stderr)
+        return 1
+    if args.sequence_parallel and plan.tp <= 1:
         print(f"error: --sequence-parallel needs tp > 1 (mesh has "
-              f"tp={tp})", file=sys.stderr)
+              f"tp={plan.tp})", file=sys.stderr)
         return 1
+    if n_dev > 1 and (args.anchor > 0.0 or args.distill > 0.0):
+        print("error: --anchor/--distill train on one rank, not over a "
+              f"mesh of {n_dev}", file=sys.stderr)
+        return 1
+    mesh = build_mesh(plan, device) if n_dev > 1 else None
 
     pairs = load_pairs(args.data)
     if not pairs:
@@ -377,9 +444,10 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
 
-    print(f"fine-tune: {len(pairs)} pairs, {len(batches)} batches/epoch, "
-          f"mesh pp=1 dp={dp} tp={tp}, "
-          f"{'LoRA r=%d' % args.lora if args.lora else 'full'}")
+    say(f"fine-tune: {len(pairs)} pairs, {len(batches)} batches/epoch, "
+        f"mesh pp={plan.pp} dp={plan.dp} tp={plan.tp}"
+        f"{' sp' if args.sequence_parallel else ''}, "
+        f"{'LoRA r=%d' % args.lora if args.lora else 'full'}")
 
     opt = default_optimizer(lr=args.lr)
     if args.freeze_base:
@@ -403,7 +471,7 @@ def main(argv: list[str] | None = None) -> int:
             ts = time.perf_counter()
             state, metrics = step_fn(state, *extra, batch)
             losses.append(float(metrics["loss"]))    # waits for the step
-            if metrics_enabled():
+            if metrics_enabled() and rank0:
                 line = {
                     "step": i + 1, "loss": losses[-1],
                     "grad_norm": float(metrics["grad_norm"]),
@@ -415,7 +483,7 @@ def main(argv: list[str] | None = None) -> int:
                     line["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
                 emit_metrics("finetune_step", line)
             if (i + 1) % 10 == 0 or i + 1 == args.steps:
-                print(f"step {i + 1}/{args.steps}: loss={losses[-1]:.4f}")
+                say(f"step {i + 1}/{args.steps}: loss={losses[-1]:.4f}")
             if args.ckpt_dir and (i + 1) % args.save_every == 0:
                 save(state)
         if args.ckpt_dir:
@@ -434,16 +502,25 @@ def main(argv: list[str] | None = None) -> int:
         lora, base = split_lora(
             add_lora(model.params, rank=args.lora, seed=args.seed)
         )
-        state = init_lora_train_state(lora, opt)
-        lstep = make_lora_train_step(cfg, opt)
+        cp_params = model.cp_params
+        if mesh is not None:   # adapters drawn on the whole tree, then cut
+            from .parallel.sharding import shard_params, talker_param_spec
+
+            lora = shard_params(lora, mesh, talker_param_spec(lora))
+            base = shard_params(base, mesh)
+            cp_params = shard_params(cp_params, mesh, training_specs(
+                model.params, cp_params, mesh)[1])
+            model.params = model.cp_params = None   # the whole trees go
+        state = init_lora_train_state(lora, opt, mesh=mesh)
+        lstep = make_lora_train_step(cfg, opt, mesh=mesh)
         if args.resume and args.ckpt_dir:
             path = latest_checkpoint(args.ckpt_dir)
             if path:
                 state = restore_train_state(path, state)
-                print(f"resumed LoRA state from {path}")
-        run(lstep, state, base, model.cp_params)
+                say(f"resumed LoRA state from {path}")
+        run(lstep, state, base, cp_params)
         final_params = merge_lora(merge_trees(base, state.lora))
-        final_cp = model.cp_params
+        final_cp = cp_params
     else:
         anchor = distill = None
         if args.anchor > 0.0 or args.distill > 0.0:
@@ -452,19 +529,32 @@ def main(argv: list[str] | None = None) -> int:
             frozen = (clone_tree(model.params), clone_tree(model.cp_params))
             anchor = frozen if args.anchor > 0.0 else None
             distill = frozen if args.distill > 0.0 else None
-        state = init_train_state(model.params, model.cp_params, opt)
+        params, cp_params = model.params, model.cp_params
+        if mesh is not None:
+            params, cp_params = shard_for_training(cfg, params, cp_params,
+                                                   mesh)
+            model.params = model.cp_params = None   # the whole trees go
+        state = init_train_state(params, cp_params, opt, mesh=mesh)
         step = make_train_step(
             cfg, opt, anchor=anchor, anchor_weight=args.anchor,
-            distill=distill, distill_weight=args.distill,
+            distill=distill, distill_weight=args.distill, mesh=mesh,
+            microbatches=microbatches,
+            sequence_parallel=args.sequence_parallel,
         )
         if args.resume and args.ckpt_dir:
             path = latest_checkpoint(args.ckpt_dir)
             if path:
                 state = restore_train_state(path, state)
-                print(f"resumed from {path}")
+                say(f"resumed from {path}")
         run(step, state)
         final_params, final_cp = state.params, state.cp_params
     del state  # the optimizer's moments
+    if mesh is not None:   # the whole trees, on rank 0 alone
+        specs = training_specs(final_params, final_cp, mesh)
+        final_params = gather_params(final_params, mesh, specs[0])
+        final_cp = gather_params(final_cp, mesh, specs[1])
+        if not rank0:
+            return 0
 
     summary: dict[str, Any] = {
         "steps": args.steps,

@@ -19,9 +19,15 @@ same offset) or ``[B]`` tensors (continuous batched serving: each row at
 its own offset).
 
 Under tensor parallelism (``mesh`` given, ``parallel/``) the blocks hold
-this rank's heads and ffn slice: callers pass the LOCAL head counts, and
-the o and down projections' partial outputs are summed over the tp group
-before the residual add.
+this rank's heads and ffn slice: callers pass the LOCAL head counts, the
+input of the q/k/v and gate/up projections passes ``comm.copy_to_tp``
+(its grad sums over tp) and the o and down projections' partial outputs
+are summed over the tp group before the residual add. With ``sp``
+(sequence parallelism, training) the residual stream is this rank's T
+slice: the projections' input is all-gathered along T
+(``comm.gather_seq``) and the o and down outputs reduce-scattered back
+(``comm.scatter_seq``); the cache and the attention read span the whole
+sequence.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.linear import linear
+from ..parallel.comm import copy_to_tp, gather_seq
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -242,6 +250,7 @@ def attention(
     pad_len=0,
     window_split: tuple | None = None,
     mesh=None,
+    sp: bool = False,
 ) -> AttnOut:
     """GQA attention with a KV-cache write at offset ``pos`` (prefill T > 1
     or decode T == 1). Queries attend over the whole cache with the mask
@@ -253,7 +262,8 @@ def attention(
     groups; group g's queries read only the first ``window`` cache rows.
     The projections stay whole-batch; only the attention read splits.
     ``mesh``: the head counts are this rank's; the o projection sums over
-    its tp group."""
+    its tp group. ``sp``: x is this rank's T slice (module docstring)."""
+    x = _tp_input(x, mesh, sp)
     B, T, _ = x.shape
     groups = n_heads // n_kv_heads
     if "qkv" in p:  # fused projection (fuse_block_projections)
@@ -305,16 +315,24 @@ def attention(
                              f"{B} rows")
         ctx = torch.cat(parts, dim=0)
     ctx = ctx.reshape(B, T, n_heads * head_dim)
-    return AttnOut(linear(ctx, p["o"], mesh), cache_k, cache_v)
+    return AttnOut(linear(ctx, p["o"], mesh, sp), cache_k, cache_v)
 
 
-def swiglu_mlp(p: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
+def _tp_input(x: torch.Tensor, mesh, sp: bool) -> torch.Tensor:
+    """The input of column-parallel projections: the whole sequence on
+    every tp rank."""
+    return gather_seq(x, mesh) if sp else copy_to_tp(x, mesh)
+
+
+def swiglu_mlp(p: dict, x: torch.Tensor, mesh=None,
+               sp: bool = False) -> torch.Tensor:
+    x = _tp_input(x, mesh, sp)
     if "gate_up" in p:  # fused [gate; up] projection
         gate, up = linear(x, p["gate_up"]).chunk(2, dim=-1)
     else:
         gate = linear(x, p["gate"])
         up = linear(x, p["up"])
-    return linear(F.silu(gate) * up, p["down"], mesh)
+    return linear(F.silu(gate) * up, p["down"], mesh, sp)
 
 
 def _concat_linears(parts: list[dict]) -> dict:
@@ -391,16 +409,48 @@ def transformer_block(
     pad_len=0,
     window_split: tuple | None = None,
     mesh=None,
+    sp: bool = False,
 ) -> torch.Tensor:
     """Pre-norm residual block: x + Attn(LN(x)); x + MLP(LN(x)). Writes this
     block's keys/values into ``cache_k``/``cache_v`` in place. ``mesh``:
-    a tp-sharded block (local head counts; ``attention``)."""
+    a tp-sharded block (local head counts; ``attention``); ``sp``: x is
+    this rank's T slice, and so is the result."""
     attn_out = attention(
         p["attn"], rmsnorm(x, p["ln1"], rms_eps),
         cos=cos, sin=sin, cache_k=cache_k, cache_v=cache_v, pos=pos,
         n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
         rms_eps=rms_eps, qk_norm=qk_norm, pad_len=pad_len,
-        window_split=window_split, mesh=mesh,
+        window_split=window_split, mesh=mesh, sp=sp,
     )
     x = x + attn_out.out
-    return x + swiglu_mlp(p["mlp"], rmsnorm(x, p["ln2"], rms_eps), mesh)
+    return x + swiglu_mlp(p["mlp"], rmsnorm(x, p["ln2"], rms_eps), mesh, sp)
+
+
+def run_blocks(blocks, x: torch.Tensor, *, cos, sin, n_heads: int,
+               n_kv_heads: int, head_dim: int, rms_eps: float,
+               qk_norm: bool, pad_len=0, remat: bool = False, mesh=None,
+               sp: bool = False) -> torch.Tensor:
+    """A full-sequence pass of stacked blocks from position 0 (training),
+    each block with a zero KV cache of its own allocated inside the
+    (checkpointed, with ``remat``: recomputed in the backward pass) block
+    function, so a recompute writes fresh buffers. ``mesh``: tp-sharded
+    blocks (the head counts given are the whole model's); ``sp``: x is this
+    rank's T slice, the cache spans the whole sequence."""
+    tp = 1 if mesh is None else mesh.tp
+    B, S = x.shape[0], x.shape[1] * (tp if sp else 1)
+    heads, kv_heads = n_heads // tp, n_kv_heads // tp
+
+    def block(bp, x):
+        ck = torch.zeros((B, S, kv_heads, head_dim), dtype=x.dtype,
+                         device=x.device)
+        return transformer_block(
+            bp, x, cos=cos, sin=sin, cache_k=ck, cache_v=torch.zeros_like(ck),
+            pos=0, n_heads=heads, n_kv_heads=kv_heads, head_dim=head_dim,
+            rms_eps=rms_eps, qk_norm=qk_norm, pad_len=pad_len, mesh=mesh,
+            sp=sp,
+        )
+
+    for bp in unstack_layers(blocks):
+        x = checkpoint(block, bp, x, use_reentrant=False) if remat \
+            else block(bp, x)
+    return x

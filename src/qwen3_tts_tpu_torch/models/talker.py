@@ -26,12 +26,15 @@ from .layers import rmsnorm, rope_slice, transformer_block, unstack_layers
 Params = dict[str, Any]
 
 
-def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_talker(cfg: ModelConfig, seed: int = 0, device=None,
+                keep=None) -> Params:
     """Random-init talker parameters with the production tree layout.
 
     ``device=None``: numpy draws in the JAX package's order on the host
     (equal values at float32); a device: fast synthetic values made there
-    (models/init.py)."""
+    (models/init.py). ``keep(i, block)`` (``parallel.sharding.
+    layer_keeper``) cuts layer i's block tree as it is drawn, or drops it
+    (None); the draws are the same either way."""
     t = cfg.talker
     init = make_init(seed, torch_dtype(cfg), device)
     qz = dict(quantize=cfg.quant.enabled, group_size=cfg.quant.group_size,
@@ -60,7 +63,7 @@ def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         "text_emb": init.normal((t.vocab_size, t.hidden), 0.02),
         "codec_emb": init.normal((t.codec_vocab, t.hidden), 0.02),
         "spk_emb": init.normal((t.n_speakers, t.hidden), 0.02),
-        "blocks": stack_trees([block() for _ in range(t.n_layers)]),
+        "blocks": stack_trees(_layers(block, t.n_layers, keep)),
         "ln_f": init.ones(t.hidden),
         "head": init.linear(t.codec_vocab, t.hidden, **qz),
     }
@@ -68,6 +71,15 @@ def init_talker(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         # quantized like the rest of the tree: int8 heads reach the kernels
         params["mtp"] = _init_mtp(init, t, qz)
     return params
+
+
+def _layers(block, n: int, keep) -> list:
+    out = []
+    for i in range(n):
+        b = block() if keep is None else keep(i, block())
+        if b is not None:
+            out.append(b)
+    return out
 
 
 def _init_mtp(init, t: TalkerConfig, qz: dict) -> Params:

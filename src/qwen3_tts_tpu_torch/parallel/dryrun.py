@@ -1,20 +1,29 @@
-"""Multi-rank dry run of tensor-parallel decode: the inference half of the
-JAX package's ``__graft_entry__.py::dryrun_multichip``.
+"""Multi-rank dry run: the JAX package's
+``__graft_entry__.py::dryrun_multichip``.
 
-The tiny config, widened so that both the talker (kv heads) and the code
-predictor (heads) split ``tp`` ways, at float32 (greedy codes compared
-exactly): one single-stream ``synthesize`` and one 8-slot
-``ServingEngine.run`` over a tp-sharded model must give the codes of the
-same model unsharded. Every rank checks its own result against its own
-unsharded run, and the ranks' codes must be equal.
+Training: one step of the tiny config (dense, in its own dtype) over every
+parallel axis the ranks allow, the JAX geometry: pp = 2 when the ranks
+are even and at least 4, then ``auto_plan`` of the rest (tp up to the
+kv-head count, dp the remainder), sequence parallelism on whenever tp >
+1, ``2 * pp`` microbatches, a batch of max(2 dp, 2 microbatches), 8 text
+tokens and 6 frames, seed 0. Its loss and grad norm are printed, as JAX
+prints them (8 ranks: the MULTICHIP record's ``mesh=(pp=2, dp=2, tp=2)``).
+
+Decode: the tiny config, widened so that both the talker (kv heads) and
+the code predictor (heads) split ``tp`` ways (tp 4 from 4 ranks, else 2),
+at float32 (greedy codes compared exactly): one single-stream
+``synthesize`` and one 8-slot ``ServingEngine.run`` over a tp-sharded
+model must give the codes of the same model unsharded. Ranks beyond tp
+form further replicas of the tp mesh. Every rank checks its own result
+against its own unsharded run, and the ranks' codes must be equal.
 
     # ranks on this host's CPU over gloo
     python -m qwen3_tts_tpu_torch.parallel.dryrun --nprocs 4 --backend gloo --device cpu
     # one rank a card (a host with N cards; the group from torchrun's env)
     torchrun --nproc-per-node N -m qwen3_tts_tpu_torch.parallel.dryrun --backend nccl
 
-The last line mirrors ``dryrun_multichip ok: ...`` without the train step
-(ROADMAP item 15b).
+The last line is the JAX ``dryrun_multichip ok: ...`` line, then the
+backend and device.
 """
 
 from __future__ import annotations
@@ -68,13 +77,64 @@ def decode_codes(model) -> tuple[np.ndarray, list[np.ndarray]]:
     return r.codes, [np.concatenate(s.codes, axis=1) for _, s in served]
 
 
-def rank_main(device, tp: int) -> dict:
-    """One rank: the unsharded and the tp-sharded model's codes, compared."""
+def train_plan(n: int, cfg):
+    """(the mesh plan, microbatches, batch size) of the JAX dry run's
+    train step on ``n`` ranks."""
+    from .mesh import MeshPlan, auto_plan
+
+    pp = 2 if n % 2 == 0 and cfg.talker.n_layers % 2 == 0 and n >= 4 else 1
+    inner = auto_plan(n // pp, tp_divisors=cfg.talker.n_kv_heads)
+    plan = MeshPlan(dp=inner.dp, tp=inner.tp, pp=pp)
+    microbatches = 2 * pp if pp > 1 else 0
+    return plan, microbatches, max(2 * plan.dp, 2 * microbatches)
+
+
+def decode_tp(n: int) -> int:
+    """JAX decodes at tp 4 from 4 devices, else 2; here tp divides n (the
+    other ranks hold replicas)."""
+    return 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+
+
+def train_step(device, n: int) -> dict:
+    """The JAX dry run's train step on this rank: configs.tiny (dense,
+    bfloat16) from seed 0, one step; its global loss and grad norm."""
+    from ..engine import configs
+    from ..models.code_predictor import init_code_predictor
+    from ..models.talker import init_talker
+    from ..training import default_optimizer, init_train_state, make_train_step
+    from ..training.train import synthetic_batch
+    from .mesh import build_mesh
+    from .sharding import shard_for_training
+
+    cfg = configs.tiny("custom", quant=False)
+    plan, microbatches, batch = train_plan(n, cfg)
+    mesh = build_mesh(plan, device)
+    # the JAX initialisers' draws (Qwen3TTSModel.synthetic's seeds)
+    p, cp = shard_for_training(cfg, init_talker(cfg, 0),
+                               init_code_predictor(cfg, 1), mesh)
+    opt = default_optimizer()
+    state = init_train_state(p, cp, opt, mesh=mesh)
+    step = make_train_step(cfg, opt, remat=True, mesh=mesh,
+                           microbatches=microbatches,
+                           sequence_parallel=plan.tp > 1)
+    _, m = step(state, synthetic_batch(cfg, batch, 8, 6, seed=0))
+    loss = float(m["loss"])
+    if loss != loss or loss == float("inf"):
+        raise AssertionError(f"non-finite loss: {loss}")
+    return {"plan": (plan.pp, plan.dp, plan.tp), "loss": loss,
+            "grad_norm": float(m["grad_norm"])}
+
+
+def rank_main(device, n: int) -> dict:
+    """One rank of ``n``: the train step, then the unsharded and the
+    tp-sharded model's codes, compared."""
     from ..engine.api import Qwen3TTSModel
     from ..runtime.sampling import SamplingConfig
     from .mesh import MeshPlan, build_mesh, cp_tp_shardable
     from .sharding import shard_model
 
+    out = {"train": train_step(device, n)}
+    tp = decode_tp(n)
     cfg = dryrun_config(tp)
 
     def model():
@@ -83,22 +143,29 @@ def rank_main(device, tp: int) -> dict:
         return m
 
     ref_single, ref_served = decode_codes(model())
-    sharded = shard_model(model(), build_mesh(MeshPlan(dp=1, tp=tp), device))
+    sharded = shard_model(model(), build_mesh(MeshPlan(dp=1, tp=tp), device,
+                                              replicas=n // tp))
     single, served = decode_codes(sharded)
     if not np.array_equal(single, ref_single):
         raise AssertionError("sharded single-stream codes diverged")
     for i, (a, b) in enumerate(zip(served, ref_served)):
         if not np.array_equal(a, b):
             raise AssertionError(f"sharded serving slot {i} codes diverged")
-    return {"single": single, "served": served,
+    return {**out, "single": single, "served": served, "tp": tp,
             "cp_sharded": cp_tp_shardable(cfg, tp)}
 
 
-def ok_line(tp: int, backend: str, device: str, cp_sharded: bool) -> str:
-    return (f"dryrun_multichip ok: mesh=(pp=1, dp=1, tp={tp}), "
-            f"backend={backend}, device={device}, "
-            f"decode_parity=ok(tp={tp}, exact_codes, "
-            f"cp_sharded={cp_sharded}), serve{SLOTS}_parity=ok(tp={tp})")
+def ok_line(result: dict, backend: str, device: str) -> str:
+    """The JAX dry run's line (its numbers to 4 places), then ours."""
+    pp, dp, tp = result["train"]["plan"]
+    dtp = result["tp"]
+    return (f"dryrun_multichip ok: mesh=(pp={pp}, dp={dp}, tp={tp}), "
+            f"sp={tp > 1}, loss={result['train']['loss']:.4f}, "
+            f"grad_norm={result['train']['grad_norm']:.4f}, "
+            f"decode_parity=ok(tp={dtp}, exact_codes, "
+            f"cp_sharded={result['cp_sharded']}), "
+            f"serve{SLOTS}_parity=ok(tp={dtp}), "
+            f"backend={backend}, device={device}")
 
 
 def _agree(results: list[dict]) -> None:
@@ -108,6 +175,8 @@ def _agree(results: list[dict]) -> None:
                 not np.array_equal(a, b)
                 for a, b in zip(r["served"], first["served"])):
             raise AssertionError("the ranks' codes differ")
+        if r["train"] != first["train"]:
+            raise AssertionError("the ranks' train metrics differ")
 
 
 def main(argv=None) -> int:
@@ -142,8 +211,7 @@ def main(argv=None) -> int:
             dist.all_gather_object(gathered, result)
             _agree(gathered)
             if dist.get_rank() == 0:
-                print(ok_line(world, args.backend, args.device,
-                              result["cp_sharded"]), flush=True)
+                print(ok_line(result, args.backend, args.device), flush=True)
         finally:
             dist.destroy_process_group()
         return 0
@@ -154,8 +222,7 @@ def main(argv=None) -> int:
                      device=args.device, timeout_s=args.timeout_s,
                      args=(args.nprocs,))
     _agree(results)
-    print(ok_line(args.nprocs, args.backend, args.device,
-                  results[0]["cp_sharded"]), flush=True)
+    print(ok_line(results[0], args.backend, args.device), flush=True)
     return 0
 
 

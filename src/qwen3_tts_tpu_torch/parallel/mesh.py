@@ -6,7 +6,10 @@ The JAX package's ``parallel/mesh.py``: ``MeshPlan``, ``auto_plan``,
 JAX lays devices out in a ``jax.sharding.Mesh`` and XLA inserts the
 collectives, here every rank is one process: ``build_mesh`` places this
 rank in the (pp, dp, tp) grid (tp innermost, as the JAX axis order) and
-creates the tp and dp process groups that ``parallel.comm`` reduces over.
+creates the process groups that ``parallel.comm`` reduces over: the tp
+and dp lines, the pp line (the sums of grads of leaves every stage
+holds) and the two-rank groups of adjacent stages (the pipeline's
+shifts).
 """
 
 from __future__ import annotations
@@ -40,9 +43,12 @@ class MeshPlan:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a (pp, dp, tp) mesh: its coordinates, the tp
-    and dp process groups it belongs to (None for a 1-rank axis), its
-    device and the group's backend (None for the 1-rank mesh)."""
+    """This rank's place in a (pp, dp, tp) mesh: its coordinates, the
+    process groups it belongs to (None for a 1-rank axis), its device and
+    the group's backend (None for the 1-rank mesh). ``rank`` is the global
+    rank; ``prev_rank``/``next_rank`` the global ranks of the stages before
+    and after it on its pp line (None at the ends), with ``prev_group`` and
+    ``next_group`` the two-rank groups it shares with them."""
 
     plan: MeshPlan
     rank: int
@@ -51,6 +57,11 @@ class Mesh:
     backend: str | None = None
     tp_group: Any = None
     dp_group: Any = None
+    pp_group: Any = None
+    prev_group: Any = None
+    next_group: Any = None
+    prev_rank: int | None = None
+    next_rank: int | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -61,6 +72,22 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.plan.tp
+
+    @property
+    def dp(self) -> int:
+        return self.plan.dp
+
+    @property
+    def pp(self) -> int:
+        return self.plan.pp
+
+    @property
+    def first_stage(self) -> bool:
+        return self.coords[0] == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.coords[0] == self.plan.pp - 1
 
     def coord(self, axis: str) -> int:
         return self.coords[(PP_AXIS, DP_AXIS, TP_AXIS).index(axis)]
@@ -73,11 +100,13 @@ def mesh_coords(rank: int, plan: MeshPlan) -> tuple[int, int, int]:
             rank % plan.tp)
 
 
-def build_mesh(plan: MeshPlan, device, *,
+def build_mesh(plan: MeshPlan, device, *, replicas: int = 1,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
     """This rank's mesh over the initialised default process group, whose
-    world size must equal ``plan.n_devices``. Every rank must call it (it
-    creates the tp and dp groups collectively, in one order)."""
+    world size must equal ``replicas * plan.n_devices``: ``replicas``
+    copies of the mesh, each over consecutive ranks (replica k holds ranks
+    k*n .. k*n+n-1), each with groups of its own. Every rank must call it
+    (it creates every group collectively, in one order)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -85,33 +114,55 @@ def build_mesh(plan: MeshPlan, device, *,
             "build_mesh needs an initialised process group "
             "(parallel.comm.launch, or torchrun and init_process_group)")
     world = dist.get_world_size()
-    if plan.n_devices != world:
-        raise ValueError(
-            f"mesh plan {plan} needs {plan.n_devices} devices, have {world}"
-        )
+    n = plan.n_devices
+    if replicas * n != world:
+        have = f"have {world}" if replicas == 1 else \
+            f"{replicas} replicas need {replicas * n}, have {world}"
+        raise ValueError(f"mesh plan {plan} needs {n} devices, {have}")
     rank = dist.get_rank()
-    coords = mesh_coords(rank, plan)
+    coords = mesh_coords(rank % n, plan)
     timeout = timedelta(seconds=timeout_s)
     pp, dp, tp = plan.pp, plan.dp, plan.tp
 
-    def rank_of(p: int, d: int, t: int) -> int:
-        return (p * dp + d) * tp + t
+    def rank_of(k: int, p: int, d: int, t: int) -> int:
+        return k * n + (p * dp + d) * tp + t
 
+    reps = range(replicas)
+    pp_lines = [[rank_of(k, p, d, t) for p in range(pp)]
+                for k in reps for d in range(dp) for t in range(tp)]
     # every line of an axis is a group, created by every rank in one order
     lines = {
-        TP_AXIS: [[rank_of(p, d, t) for t in range(tp)]
-                  for p in range(pp) for d in range(dp)] if tp > 1 else [],
-        DP_AXIS: [[rank_of(p, d, t) for d in range(dp)]
-                  for p in range(pp) for t in range(tp)] if dp > 1 else [],
+        TP_AXIS: [[rank_of(k, p, d, t) for t in range(tp)]
+                  for k in reps for p in range(pp) for d in range(dp)]
+        if tp > 1 else [],
+        DP_AXIS: [[rank_of(k, p, d, t) for d in range(dp)]
+                  for k in reps for p in range(pp) for t in range(tp)]
+        if dp > 1 else [],
+        PP_AXIS: pp_lines if pp > 1 else [],
+        # adjacent stages: at pp = 2 the pp line is the pair
+        "pairs": [line[s:s + 2] for line in pp_lines for s in range(pp - 1)]
+        if pp > 2 else [],
     }
-    groups = {TP_AXIS: None, DP_AXIS: None}
+    groups: dict = {}
+    pairs: dict = {}
     for axis, members_list in lines.items():
         for members in members_list:
             group = dist.new_group(members, timeout=timeout)
-            if rank in members:
+            if rank not in members:
+                continue
+            if axis == "pairs":
+                pairs[tuple(members)] = group
+            else:
                 groups[axis] = group
-    return Mesh(plan, rank, coords, torch.device(device),
-                dist.get_backend(), groups[TP_AXIS], groups[DP_AXIS])
+    if pp == 2:
+        pairs[tuple(next(ln for ln in pp_lines if rank in ln))] = \
+            groups[PP_AXIS]
+    prev_rank = rank - dp * tp if coords[0] > 0 else None
+    next_rank = rank + dp * tp if coords[0] < pp - 1 else None
+    return Mesh(plan, rank, coords, torch.device(device), dist.get_backend(),
+                groups.get(TP_AXIS), groups.get(DP_AXIS), groups.get(PP_AXIS),
+                pairs.get((prev_rank, rank)), pairs.get((rank, next_rank)),
+                prev_rank, next_rank)
 
 
 def local_mesh(device="cpu") -> Mesh:

@@ -511,7 +511,7 @@ class Generator:
                                       or self.mesh.plan.pp > 1):
             raise ValueError(
                 f"decode shards over tp only, got mesh {self.mesh.shape}: "
-                "dp and pp are training's axes (ROADMAP item 15b)")
+                "dp and pp are training's axes (training.train)")
         self.device = _first_device(self.params)
         self.dtype = torch_dtype(self.cfg)
         self.cp_params, self.codec_params = fuse_decode_params(

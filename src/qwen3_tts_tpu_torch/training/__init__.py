@@ -1,5 +1,6 @@
 """Training: teacher-forced fine-tuning of the talker + code predictor
-(the JAX package's training/ on one device).
+(the JAX package's training/), on one device or over a (pp, dp, tp)
+mesh of ranks (``parallel/``).
 
 Losses that mirror the inference decomposition (codebook-0 CE for the
 talker, depth-transformer CE for the residual predictor), a train step with

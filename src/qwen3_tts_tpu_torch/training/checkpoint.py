@@ -9,6 +9,14 @@ the optimizer's ``state_dict()`` and the step). It is written under a
 returns a half-written save (orbax's in-flight naming, which the JAX
 package's ``latest_checkpoint`` skips the same way). The format is the
 port's own: an orbax checkpoint of the JAX package does not load here.
+
+One format whatever the mesh, as the JAX package's orbax checkpoint: a
+state on a mesh (``state.mesh``) is gathered to rank 0, parameters and
+AdamW moments alike (``parallel.sharding.gather_params``), which writes
+the file a one-device run writes; every rank calls ``save_train_state``
+and returns once the file is complete. ``restore_train_state`` onto any
+mesh (the template's) cuts the saved whole leaves and moments to the
+rank's slices.
 """
 
 from __future__ import annotations
@@ -29,7 +37,46 @@ STATE_FILE = "state.pt"
 def _tree_fields(state: Any) -> list[str]:
     """The parameter-tree fields of a TrainState / LoraTrainState."""
     return [f.name for f in dataclasses.fields(state)
-            if f.name not in ("opt_state", "step")]
+            if f.name not in ("opt_state", "step", "mesh")]
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.plan.n_devices > 1
+
+
+def _specs(state: Any) -> dict:
+    """Each tree field's spec on ``state.mesh`` (the code predictor
+    replicated, the talker and LoRA trees as the talker)."""
+    from ..parallel.sharding import replicated_spec, talker_param_spec
+
+    pp = state.mesh.plan.pp > 1
+    return {name: replicated_spec(getattr(state, name))
+            if name == "cp_params"
+            else talker_param_spec(getattr(state, name), pp=pp)
+            for name in _tree_fields(state)}
+
+
+def _moment_splits(state: Any, specs: dict) -> list:
+    """The ``Split`` of each optimizer parameter, in optimizer order (the
+    trainable leaves of the tree fields in tree order)."""
+    from ..parallel.sharding import leaf_splits
+
+    out = []
+    for name in _tree_fields(state):
+        tree = getattr(state, name)
+        splits = leaf_splits(tree, specs[name])
+        out += [splits[path] for path, leaf in flatten_tree(tree).items()
+                if leaf.requires_grad]
+    return out
+
+
+def _map_moments(opt_state: dict, splits: list, fn) -> dict:
+    """``opt_state`` (a state_dict) with ``fn(tensor, split)`` applied to
+    every per-parameter tensor of a parameter's shape (the moments)."""
+    state = {i: {k: fn(v, splits[i]) if torch.is_tensor(v) and v.dim() else v
+                 for k, v in st.items()}
+             for i, st in opt_state["state"].items()}
+    return {**opt_state, "state": state}
 
 
 def save_train_state(state: Any, directory: str, step: int | None = None) -> str:
@@ -38,19 +85,32 @@ def save_train_state(state: Any, directory: str, step: int | None = None) -> str
     if step is None:
         step = int(state.step)
     path = os.path.abspath(os.path.join(directory, f"step_{step:08d}"))
-    tmp = path + "-tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({
-        "kind": type(state).__name__,
-        "trees": {name: detach_tree(getattr(state, name))
-                  for name in _tree_fields(state)},
-        "opt_state": state.opt_state.state_dict(),
-        "step": step,
-    }, os.path.join(tmp, STATE_FILE))
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
+    trees = {name: detach_tree(getattr(state, name))
+             for name in _tree_fields(state)}
+    opt_state = state.opt_state.state_dict()
+    mesh = getattr(state, "mesh", None)
+    if _sharded(mesh):
+        from ..parallel.sharding import gather_leaf, gather_params
+
+        specs = _specs(state)
+        opt_state = _map_moments(opt_state, _moment_splits(state, specs),
+                                 lambda v, split: gather_leaf(v, split, mesh))
+        trees = {name: gather_params(tree, mesh, specs[name])
+                 for name, tree in trees.items()}
+    if not _sharded(mesh) or mesh.rank == 0:
+        tmp = path + "-tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"kind": type(state).__name__, "trees": trees,
+                    "opt_state": opt_state, "step": step},
+                   os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    if _sharded(mesh):
+        import torch.distributed as dist
+
+        dist.barrier()   # the file is complete for every rank
     return path
 
 
@@ -86,15 +146,26 @@ def restore_train_state(path: str, template: Any) -> Any:
     kind and structure (e.g. a freshly initialised one): its leaves are
     overwritten in place on their device, and its optimizer, built over
     the same leaves in the same order, loads the saved ``state_dict()``.
-    Returns the template."""
+    On a mesh (``template.mesh``) each rank keeps its slices of the saved
+    whole leaves and moments. Returns the template."""
     saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                       weights_only=True)
+                       weights_only=True, mmap=True)
     if saved["kind"] != type(template).__name__:
         raise ValueError(f"{path} holds a {saved['kind']}, the template is a "
                          f"{type(template).__name__}")
+    trees, opt_state = saved["trees"], saved["opt_state"]
+    mesh = getattr(template, "mesh", None)
+    if _sharded(mesh):
+        from ..parallel.sharding import shard_leaf, shard_params
+
+        specs = _specs(template)
+        trees = {name: shard_params(trees[name], mesh, specs[name])
+                 for name in _tree_fields(template)}
+        opt_state = _map_moments(opt_state, _moment_splits(template, specs),
+                                 lambda v, split: shard_leaf(v, split, mesh))
     with torch.no_grad():
         for name in _tree_fields(template):
-            _copy_into(getattr(template, name), saved["trees"][name], name)
-    template.opt_state.load_state_dict(saved["opt_state"])
+            _copy_into(getattr(template, name), trees[name], name)
+    template.opt_state.load_state_dict(opt_state)
     template.step = int(saved["step"])
     return template

@@ -106,6 +106,21 @@ def pad_batch(examples: Sequence[Example], pad_id: int = 0) -> dict:
     }
 
 
+def dp_rows(batch: dict, mesh) -> dict:
+    """This rank's contiguous rows of a global batch on ``mesh`` (the
+    block at its dp coordinate, as ``P("dp")`` places a batch in the JAX
+    package); the batch itself without a dp axis."""
+    if mesh is None or mesh.plan.dp == 1:
+        return batch
+    dp = mesh.plan.dp
+    rows = len(next(iter(batch.values())))
+    if rows % dp:
+        raise ValueError(f"batch of {rows} rows does not split over dp={dp}")
+    n = rows // dp
+    d = mesh.coord("dp")
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+
+
 def batches_from_pairs(
     model,
     pairs: Sequence[tuple[str, np.ndarray, int]],

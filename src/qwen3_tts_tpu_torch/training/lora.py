@@ -28,11 +28,15 @@ import torch
 
 from ..engine.configs import ModelConfig
 from .loss import joint_loss
+from .data import dp_rows
 from .train import (
+    GradSync,
     Optimizer,
     _optimizer_update,
+    _sharded,
     detach_tree,
     device_batch,
+    global_metrics,
     trainable_leaves,
 )
 
@@ -192,11 +196,16 @@ class LoraTrainState:
     lora: Any              # talker adapter subtree (split_lora output)
     opt_state: Any         # torch.optim.AdamW over the adapter leaves
     step: int
+    mesh: Any = None       # the trees' mesh (None: one device)
 
 
-def init_lora_train_state(lora: Any, optimizer: Optimizer) -> LoraTrainState:
+def init_lora_train_state(lora: Any, optimizer: Optimizer,
+                          mesh=None) -> LoraTrainState:
+    """``mesh``: the adapters are this rank's slices on it (they split
+    with the linears they adapt, ``parallel.sharding``)."""
     leaves = trainable_leaves((lora,), None)
-    return LoraTrainState(lora=lora, opt_state=optimizer.build(leaves), step=0)
+    return LoraTrainState(lora=lora, opt_state=optimizer.build(leaves),
+                          step=0, mesh=mesh)
 
 
 def make_lora_train_step(
@@ -205,25 +214,35 @@ def make_lora_train_step(
     *,
     cp_weight: float = 1.0,
     remat: bool = True,
+    mesh=None,
 ) -> Callable:
     """``step(state, base_params, cp_params, batch) -> (state, metrics)``.
 
     Differentiates the same joint loss as the full train step
     (training/train.py) but only through the adapter leaves: the base and
     the whole code predictor enter detached, so no gradient of their size
-    is ever allocated."""
+    is ever allocated. ``mesh``: a dp x tp mesh whose slices the trees are
+    (the adapters' grads summed as the full step's, ``GradSync``); the
+    batch is the global one."""
+    if mesh is not None and mesh.plan.pp > 1:
+        raise ValueError("the LoRA step runs on a dp x tp mesh: its "
+                         "adapter-sized step has no layer pipeline")
 
     def step(state: LoraTrainState, base_params: Any, cp_params: Any,
              batch: dict) -> tuple[LoraTrainState, dict]:
         device = state.opt_state.param_groups[0]["params"][0].device
         params = merge_trees(detach_tree(base_params), state.lora)
         loss, metrics = joint_loss(params, detach_tree(cp_params), cfg,
-                                   device_batch(batch, device),
-                                   cp_weight=cp_weight, remat=remat)
+                                   device_batch(dp_rows(batch, mesh), device),
+                                   cp_weight=cp_weight, remat=remat,
+                                   mesh=mesh)
         loss.backward()
-        norm = _optimizer_update(state.opt_state, optimizer.clip)
+        sync = GradSync.of([(True, state.lora)], mesh) \
+            if _sharded(mesh) else None
+        norm = _optimizer_update(state.opt_state, optimizer.clip, sync)
         state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = global_metrics({k: v.detach() for k, v in metrics.items()},
+                                 mesh, device)
         metrics["grad_norm"] = norm
         return state, metrics
 

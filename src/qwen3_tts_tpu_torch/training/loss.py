@@ -18,13 +18,21 @@ teacher-forced depth inputs.
 
 ``remat=True`` recomputes each transformer block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
-activations. Both settings run the blocks through ``_run_blocks``, where
-every block allocates its own zero KV cache inside the (checkpointed) block
-function, so a recompute writes fresh buffers. The two give equal values.
+activations. Both settings run the blocks through ``layers.run_blocks``,
+where every block allocates its own zero KV cache inside the
+(checkpointed) block function, so a recompute writes fresh buffers. The
+two give equal values.
 
-The JAX package's ``stack_fn`` (the pipeline-parallel block runner) and
-``act_constraint`` (sequence-parallel activation sharding) hooks belong to
-multi-device training, ROADMAP item 15, and are not part of this module.
+Training across ranks (``joint_loss``'s keywords): ``mesh`` is this rank's
+place (``parallel.mesh``): the talker's blocks are its tp shard, and the
+batch its dp rows, over which every masked mean is the JAX package's
+global one (the masked sum of this rank's rows over the mask count summed
+over dp: the rank's share of the loss, summed over dp by the train
+step). The JAX hooks are ``stack_fn`` (the pipelined block stack,
+``parallel.pipeline.talker_stack_fn``: the loss then runs on the last
+stage, and returns None on the others) and ``sequence_parallel`` (the
+port's form of ``act_constraint``: the residual stream between blocks is
+this rank's T slice, padded at the end to a multiple of tp).
 """
 
 from __future__ import annotations
@@ -32,11 +40,10 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..engine.configs import ModelConfig
 from ..models.code_predictor import residual_feedback_sum
-from ..models.layers import rmsnorm, rope_tables, transformer_block, unstack_layers
+from ..models.layers import rmsnorm, rope_tables, run_blocks
 from ..models.talker import (
     merge_step_embs,
     merge_step_tokens,
@@ -45,56 +52,56 @@ from ..models.talker import (
     text_projection,
 )
 from ..ops.linear import linear
+from ..parallel.comm import enter_seq, exit_seq, sum_
+
+
+def _count(m: torch.Tensor, mesh) -> torch.Tensor:
+    """The mask count, summed over dp under a mesh with dp > 1."""
+    count = torch.sum(m)
+    if mesh is not None and mesh.plan.dp > 1:
+        count = sum_(count.detach().clone(), mesh.dp_group, mesh, "dp_sum")
+    return torch.clamp(count, min=1.0)
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean CE. logits [..., V], targets [...] int, mask bool."""
+                   mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Masked mean CE. logits [..., V], targets [...] int, mask bool. Under
+    a dp mesh: this rank's masked sum over the global count."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     m = mask.float()
-    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(nll * m) / _count(m, mesh)
 
 
-def _run_blocks(blocks, x: torch.Tensor, *, cos, sin, n_heads: int,
-                n_kv_heads: int, head_dim: int, rms_eps: float,
-                qk_norm: bool, pad_len=0, remat: bool = False) -> torch.Tensor:
-    """A full-sequence pass of stacked blocks from position 0, each block
-    with a zero KV cache of its own allocated inside the (checkpointed,
-    with ``remat``) block function."""
-    B, S, _ = x.shape
-
-    def block(bp, x):
-        ck = torch.zeros((B, S, n_kv_heads, head_dim), dtype=x.dtype,
-                         device=x.device)
-        return transformer_block(
-            bp, x, cos=cos, sin=sin, cache_k=ck, cache_v=torch.zeros_like(ck),
-            pos=0, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
-            rms_eps=rms_eps, qk_norm=qk_norm, pad_len=pad_len,
-        )
-
-    for bp in unstack_layers(blocks):
-        x = checkpoint(block, bp, x, use_reentrant=False) if remat \
-            else block(bp, x)
-    return x
-
-
-def _talker_stack(params: Any, t, x: torch.Tensor, pad_len,
-                  remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _talker_stack(params: Any, t, x: torch.Tensor, pad_len, remat: bool,
+                  hooks: dict | None = None):
     """(hidden, logits f32) of a full-sequence talker pass from position
-    0: ``talker_forward``'s computation over ``_run_blocks``."""
-    cos_t, sin_t = rope_tables(x.shape[1], t.head_dim, t.rope_theta, x.device)
-    y = _run_blocks(params["blocks"], x, cos=cos_t, sin=sin_t,
-                    n_heads=t.n_heads, n_kv_heads=t.n_kv_heads,
-                    head_dim=t.head_dim, rms_eps=t.rms_eps, qk_norm=True,
-                    pad_len=pad_len, remat=remat)
+    0: ``talker_forward``'s computation over ``layers.run_blocks``, or
+    (None, None) on a pipeline stage other than the last. ``hooks``:
+    ``stack_fn``, ``mesh`` and ``sequence_parallel`` (module docstring)."""
+    hooks = hooks or {}
+    mesh, sp = hooks.get("mesh"), hooks.get("sequence_parallel", False)
+    if hooks.get("stack_fn") is not None:
+        y = hooks["stack_fn"](params["blocks"], x, pad_len)
+        if y is None:
+            return None, None
+    else:
+        xs = enter_seq(x, mesh) if sp else x
+        cos_t, sin_t = rope_tables(xs.shape[1] * (mesh.tp if sp else 1),
+                                   t.head_dim, t.rope_theta, x.device)
+        y = run_blocks(params["blocks"], xs, cos=cos_t, sin=sin_t,
+                       n_heads=t.n_heads, n_kv_heads=t.n_kv_heads,
+                       head_dim=t.head_dim, rms_eps=t.rms_eps, qk_norm=True,
+                       pad_len=pad_len, remat=remat, mesh=mesh, sp=sp)
+        if sp:
+            y = exit_seq(y, mesh, x.shape[1])
     hidden = rmsnorm(y, params["ln_f"], t.rms_eps)
     return hidden, linear(hidden, params["head"]).float()
 
 
 def _published_hidden_and_logits(
     params: Any, cp_params: Any, cfg: ModelConfig, batch: dict,
-    remat: bool = False,
+    remat: bool = False, hooks: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward under the published decode protocol
     (TalkerConfig.feedback="residual_sum"), the inference layout of
@@ -189,7 +196,9 @@ def _published_hidden_and_logits(
     x = torch.cat(parts + [frame_in], dim=1)
     P = x.shape[1] - (K - 1)                                 # prompt length
     shift = torch.zeros((B,), dtype=torch.long, device=dev)  # no left pad
-    hidden, logits = _talker_stack(params, t, x, shift, remat)
+    hidden, logits = _talker_stack(params, t, x, shift, remat, hooks)
+    if hidden is None:
+        return None, None
     # the codec_bos row sits at P-1; its output predicts step 0
     step_hidden = hidden[:, P - 1:, :]                       # [B, K, D]
     step_logits = logits[:, P - 1:, :]
@@ -217,9 +226,11 @@ def _published_hidden_and_logits(
 
 def _talker_hidden_and_logits(
     params: Any, cfg: ModelConfig, batch: dict, cp_params: Any = None,
-    remat: bool = False,
+    remat: bool = False, hooks: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward; returns (hidden, logits) at frame positions.
+    """Full-sequence forward; returns (hidden, logits) at frame positions,
+    or (None, None) on a pipeline stage other than the last (``hooks``:
+    ``_talker_stack``).
 
     The conditioning layout mirrors inference exactly: text is LEFT-padded
     (each example's tokens are shifted right so the real text ends
@@ -236,7 +247,7 @@ def _talker_hidden_and_logits(
                 " — use joint_loss, or pass cp_params explicitly"
             )
         return _published_hidden_and_logits(params, cp_params, cfg, batch,
-                                            remat)
+                                            remat, hooks)
     text = batch["text_tokens"]                       # [B, Tt] right-padded
     text_mask = batch["text_mask"]                    # [B, Tt] bool
     codes0 = batch["codes"][:, 0, :]                  # [B, Tf]
@@ -288,7 +299,9 @@ def _talker_hidden_and_logits(
     x = torch.cat([text_emb, *head_rows, bos, frame_in], dim=1)
     W = W + len(head_rows)  # BOS position shifts past the prompt head
 
-    hidden, logits = _talker_stack(params, t, x, shift, remat)
+    hidden, logits = _talker_stack(params, t, x, shift, remat, hooks)
+    if hidden is None:
+        return None, None
     # BOS sits at index W; its output predicts step 0, so positions W+k
     # hold the prediction for step k
     step_hidden = hidden[:, W:, :]
@@ -369,10 +382,10 @@ def code_predictor_teacher_logits(
     x = torch.cat(tf_in, dim=1)             # [N, n_groups (+1 if 2-pos), H]
 
     T_depth = x.shape[1]
-    x = _run_blocks(cp_params["blocks"], x, cos=cos_t[:T_depth],
-                    sin=sin_t[:T_depth], n_heads=cp.n_heads,
-                    n_kv_heads=cp.n_heads, head_dim=cp.head_dim,
-                    rms_eps=cp.rms_eps, qk_norm=cp.qk_norm, remat=remat)
+    x = run_blocks(cp_params["blocks"], x, cos=cos_t[:T_depth],
+                   sin=sin_t[:T_depth], n_heads=cp.n_heads,
+                   n_kv_heads=cp.n_heads, head_dim=cp.head_dim,
+                   rms_eps=cp.rms_eps, qk_norm=cp.qk_norm, remat=remat)
     h = rmsnorm(x, cp_params["ln_f"], cp.rms_eps)      # [N, T_depth, H]
     if hidden_token:
         h = h[:, 1:, :]  # group g scores position g+1 (the decode layout)
@@ -446,17 +459,24 @@ def sequential_distill_loss(
 
 def joint_loss(
     params: Any, cp_params: Any, cfg: ModelConfig, batch: dict,
-    *, cp_weight: float = 1.0, remat: bool = False,
-) -> tuple[torch.Tensor, dict]:
+    *, cp_weight: float = 1.0, remat: bool = False, stack_fn: Any = None,
+    mesh=None, sequence_parallel: bool = False,
+) -> tuple[torch.Tensor | None, dict]:
     """Talker CE + weighted residual-predictor CE, sharing one talker pass.
-    Returns (total, {"talker_loss", "cp_loss", "loss"})."""
+    Returns (total, {"talker_loss", "cp_loss", "loss"}); (None, {}) on a
+    pipeline stage other than the last. ``stack_fn``, ``mesh`` and
+    ``sequence_parallel``: training across ranks (module docstring)."""
+    hooks = {"stack_fn": stack_fn, "mesh": mesh,
+             "sequence_parallel": sequence_parallel}
     hidden, logits = _talker_hidden_and_logits(
-        params, cfg, batch, cp_params=cp_params, remat=remat)
+        params, cfg, batch, cp_params=cp_params, remat=remat, hooks=hooks)
+    if hidden is None:
+        return None, {}
     t_loss = _cross_entropy(logits, batch["codes"][:, 0, :],
-                            batch["frame_mask"])
+                            batch["frame_mask"], mesh)
     flat_h, flat_codes, mask = _flat_frames(batch, hidden)
     cp_logits = code_predictor_teacher_logits(cp_params, cfg, flat_h,
                                               flat_codes, remat=remat)
-    cp_loss = _cross_entropy(cp_logits, flat_codes[:, 1:], mask)
+    cp_loss = _cross_entropy(cp_logits, flat_codes[:, 1:], mask, mesh)
     total = t_loss + cp_weight * cp_loss
     return total, {"talker_loss": t_loss, "cp_loss": cp_loss, "loss": total}

@@ -1,4 +1,5 @@
-"""The train step (the JAX package's training/train.py) on one device.
+"""The train step (the JAX package's training/train.py), on one device or
+over the ranks of a (pp, dp, tp) mesh.
 
 ``make_train_step`` returns ``step(state, batch) -> (state, metrics)``, as
 in the JAX package: loss and grads of the talker and code predictor
@@ -17,8 +18,20 @@ divides by ``|g| + 1e-6`` instead).
 
 ``remat`` recomputes each transformer block in the backward pass
 (``training.loss``); the JAX package wraps the whole loss in one
-``jax.checkpoint``. Training across several devices (a mesh, pipeline
-microbatches, sequence parallelism) is ROADMAP item 15.
+``jax.checkpoint``.
+
+Over a mesh (``parallel/``; every rank makes the same calls) the state's
+trees are this rank's slices (``parallel.sharding.shard_for_training``)
+and each rank takes its dp rows of the global batch. What XLA inserted
+is written out: the tp collectives inside the blocks (``parallel.comm``),
+the GPipe schedule at pp > 1 (``parallel.pipeline``), the loss's global
+masked mean over dp, then after the backward pass the grad sums
+(``GradSync``): over tp for replicated leaves used inside the tp region,
+over the pp line for leaves every stage holds (each stage computed its
+own share), over dp for all. The global norm is the full, unsharded
+grads' norm: a split leaf's squares summed over its axes, a replicated
+leaf counted once, so the clip and ``grad_norm`` are optax's on one
+device. Every rank then applies the same AdamW update to its slices.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import torch
 
 from ..engine.configs import ModelConfig
 from ..engine.weights import flatten_tree
+from .data import dp_rows
 from .loss import joint_loss
 
 
@@ -41,6 +55,7 @@ class TrainState:
     cp_params: Any         # code predictor
     opt_state: Any         # torch.optim.AdamW over the trainable leaves
     step: int
+    mesh: Any = None       # the trees' mesh (None: whole trees, one device)
 
 
 @dataclass(frozen=True)
@@ -61,11 +76,15 @@ class Optimizer:
     eps: float = 1e-8
     weight_decay: float = 0.01
     trainable: tuple | None = None
+    # torch's multi-tensor update (None: its default, on for CUDA leaves)
+    # makes temporaries the size of all the leaves; False updates one
+    # leaf at a time (equal values)
+    foreach: bool | None = None
 
     def build(self, leaves: list) -> torch.optim.AdamW:
         return torch.optim.AdamW(
             leaves, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.weight_decay)
+            weight_decay=self.weight_decay, foreach=self.foreach)
 
 
 def default_optimizer(lr: float = 1e-4, clip: float = 1.0) -> Optimizer:
@@ -135,14 +154,15 @@ def device_batch(batch: dict, device) -> dict:
     return out
 
 
-def init_train_state(params: Any, cp_params: Any,
-                     optimizer: Optimizer) -> TrainState:
+def init_train_state(params: Any, cp_params: Any, optimizer: Optimizer,
+                     mesh=None) -> TrainState:
     """A TrainState over the live trees (not copied): the trainable leaves
     get ``requires_grad`` and an AdamW of ``optimizer`` over them, in tree
-    order (a restore rebuilds the same order)."""
+    order (a restore rebuilds the same order). ``mesh``: the trees are
+    this rank's slices on it (``parallel.sharding.shard_for_training``)."""
     leaves = trainable_leaves((params, cp_params), optimizer.trainable)
     return TrainState(params=params, cp_params=cp_params,
-                      opt_state=optimizer.build(leaves), step=0)
+                      opt_state=optimizer.build(leaves), step=0, mesh=mesh)
 
 
 def anchor_penalty(tree, ref, skip: tuple = ("mtp",)) -> torch.Tensor:
@@ -165,24 +185,145 @@ def anchor_penalty(tree, ref, skip: tuple = ("mtp",)) -> torch.Tensor:
     return total / max(n, 1)
 
 
-def _optimizer_update(opt: torch.optim.Optimizer, clip: float) -> torch.Tensor:
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.plan.n_devices > 1
+
+
+# elementwise work on a grad goes in pieces of at most this many elements,
+# so no temporary of an embedding-sized leaf (311 M at the flagship's text
+# vocabulary) is made in float32
+CHUNK = 1 << 24
+
+
+def _pieces(g: torch.Tensor) -> list[torch.Tensor]:
+    flat = g.view(-1)
+    return [flat[i:i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) in float32 (by pieces for a leaf above CHUNK elements)."""
+    if g.numel() <= CHUNK:
+        return g.float().square().sum()
+    return torch.stack([p.float().square().sum() for p in _pieces(g)]).sum()
+
+
+class GradSync:
+    """The cross-rank half of a step over ``mesh``: ``entries`` holds, for
+    each trainable leaf in optimizer order, its ``Split`` and whether it
+    is a tp-replicated leaf used inside the tp region
+    (``parallel.sharding.tp_partial``). Calling it on the leaves' grads
+    sums them in place (module docstring) and returns the global norm."""
+
+    def __init__(self, entries: list, mesh):
+        self.entries, self.mesh = entries, mesh
+
+    @classmethod
+    def of(cls, trees: list, mesh, sequence_parallel: bool = False):
+        """From (talker-like?, tree) pairs in optimizer order: the talker
+        and LoRA trees split as ``training_specs``'s talker spec, the code
+        predictor replicated."""
+        from ..parallel.sharding import (REPLICATED, leaf_splits,
+                                         talker_param_spec, tp_partial)
+
+        entries = []
+        for talker, tree in trees:
+            spec = leaf_splits(tree, talker_param_spec(
+                tree, pp=mesh.plan.pp > 1)) if talker else {}
+            for path, leaf in tree_leaves(tree):
+                if leaf.requires_grad:
+                    parts = tuple(path.split("/"))
+                    entries.append((spec.get(path, REPLICATED),
+                                    talker and tp_partial(parts,
+                                                          sequence_parallel)))
+        return cls(entries, mesh)
+
+    def _sum(self, grads: list, group) -> None:
+        """Sum ``grads`` over ``group`` in place, as float32 chunks."""
+        from ..parallel.comm import sum_
+
+        pieces = [p for g in grads for p in _pieces(g)]
+        while pieces:   # float32 all_reduces of at most CHUNK elements
+            batch, n = [], 0
+            while pieces and (not batch or n + pieces[0].numel() <= CHUNK):
+                n += pieces[0].numel()
+                batch.append(pieces.pop(0))
+            flat = sum_(torch.cat([p.float() for p in batch]), group,
+                        self.mesh, "grad_sum")
+            off = 0
+            for p in batch:
+                p.copy_(flat[off:off + p.numel()])
+                off += p.numel()
+
+    def __call__(self, grads: list) -> torch.Tensor:
+        from ..parallel.comm import sum_
+
+        mesh, plan = self.mesh, self.mesh.plan
+        if len(grads) != len(self.entries):
+            raise ValueError(f"{len(grads)} grads for {len(self.entries)} "
+                             "trainable leaves")
+        pairs = list(zip(grads, self.entries))
+        for n, group, pick in (
+                (plan.tp, mesh.tp_group, lambda e: e[1]),
+                (plan.pp, mesh.pp_group, lambda e: e[0].pp is None),
+                (plan.dp, mesh.dp_group, lambda e: True)):
+            if n > 1:
+                self._sum([g for g, e in pairs if pick(e)], group)
+        # squares of leaves split over (neither, tp, pp, both) axes
+        sq = torch.zeros(4, dtype=torch.float32, device=grads[0].device)
+        for g, (split, _) in pairs:
+            k = (split.tp is not None and plan.tp > 1) \
+                + 2 * (split.pp is not None and plan.pp > 1)
+            sq[k] += _square_sum(g)
+        if plan.tp > 1:
+            sq[1::2] = sum_(sq[1::2].clone(), mesh.tp_group, mesh, "grad_sum")
+        if plan.pp > 1:
+            sq[2:] = sum_(sq[2:].clone(), mesh.pp_group, mesh, "grad_sum")
+        return torch.sqrt(sq.sum())
+
+
+def _optimizer_update(opt: torch.optim.Optimizer, clip: float,
+                      sync: GradSync | None = None) -> torch.Tensor:
     """Zero-fill missing grads (optax updates every leaf: a zero grad still
-    decays the moments and the weight), clip to optax's formula, step, and
-    clear the grads. Returns the pre-clip global norm (f32)."""
+    decays the moments and the weight), sum them across ranks (``sync``),
+    clip to optax's formula, step, and clear the grads. Returns the
+    pre-clip global norm (f32)."""
     leaves = [p for g in opt.param_groups for p in g["params"]]
     grads = []
     for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    norm = torch.sqrt(torch.stack([g.float().square().sum()
-                                   for g in grads]).sum())
+    if sync is None:
+        norm = torch.sqrt(torch.stack([_square_sum(g) for g in grads]).sum())
+    else:
+        norm = sync(grads)
     clipped = norm >= clip
     for g in grads:
-        g.copy_(torch.where(clipped, g / norm.to(g.dtype) * clip, g))
+        for p in _pieces(g):
+            p.copy_(torch.where(clipped, p / norm.to(p.dtype) * clip, p))
     opt.step()
     opt.zero_grad(set_to_none=True)
     return norm
+
+
+METRIC_KEYS = ("talker_loss", "cp_loss", "loss")
+
+
+def global_metrics(metrics: dict, mesh, device) -> dict:
+    """This rank's loss metrics (its dp rows' share of the global means;
+    empty on a pipeline stage other than the last) -> the global ones on
+    every rank: summed over the pp line, then over dp."""
+    from ..parallel.comm import sum_
+
+    if not _sharded(mesh):
+        return metrics
+    vec = (torch.stack([metrics[k].detach().float() for k in METRIC_KEYS])
+           if metrics else torch.zeros(len(METRIC_KEYS), device=device))
+    for n, group in ((mesh.plan.pp, mesh.pp_group),
+                     (mesh.plan.dp, mesh.dp_group)):
+        if n > 1:
+            vec = sum_(vec.clone(), group, mesh, "dp_sum")
+    return dict(zip(METRIC_KEYS, vec))
 
 
 def _base_config(cfg: ModelConfig) -> ModelConfig:
@@ -194,15 +335,6 @@ def _base_config(cfg: ModelConfig) -> ModelConfig:
         code_predictor=dataclasses.replace(cfg.code_predictor, depth_group=1,
                                            spec_decode=False),
     )
-
-
-def _check_single_device(mesh, sequence_parallel: bool) -> None:
-    axes = dict(getattr(mesh, "shape", mesh) or {})
-    if sequence_parallel or int(np.prod(list(axes.values()) or [1])) > 1:
-        raise NotImplementedError(
-            f"training across devices (mesh {axes}, sequence_parallel="
-            f"{sequence_parallel}) is not ported: ROADMAP item 15 (the "
-            "port trains on one device)")
 
 
 def make_train_step(
@@ -230,15 +362,35 @@ def make_train_step(
     grad_norm (the pre-clip norm of the trainable leaves' grads) and
     anchor_pen / distill_kl when on, as detached tensors.
 
-    ``mesh`` (axis sizes, e.g. ``{"dp": 1, "tp": 1, "pp": 2}``) over more
-    than one device and ``sequence_parallel`` raise NotImplementedError:
-    ROADMAP item 15. ``microbatches`` only applies to a pipeline."""
-    if mesh is not None or sequence_parallel:
-        _check_single_device(mesh, sequence_parallel)
+    ``mesh`` (``parallel.mesh``; the state's trees are this rank's slices
+    on it): the step of the module docstring, whose batch is the global
+    batch (each rank takes its dp rows) and whose metrics are global on
+    every rank. At pp > 1 the talker's blocks run as a GPipe pipeline of
+    ``microbatches`` microbatches (default 4 * pp; the batch must divide
+    by it). ``sequence_parallel`` (needs a tp > 1 mesh) splits the
+    residual stream along T over tp between the talker's blocks. The
+    anchor and distillation terms train on one rank."""
+    stack_fn = None
+    if mesh is not None:
+        from ..parallel.pipeline import talker_stack_fn
+
+        if sequence_parallel and mesh.tp <= 1:
+            raise ValueError("sequence_parallel needs a tp > 1 mesh")
+        if mesh.plan.pp > 1:
+            stack_fn = talker_stack_fn(
+                cfg, mesh=mesh, microbatches=microbatches or 4 * mesh.plan.pp,
+                remat=remat, sequence_parallel=sequence_parallel)
+        if _sharded(mesh) and (anchor_weight > 0.0 or distill_weight > 0.0):
+            raise ValueError("the anchor and distillation terms train on one "
+                             f"rank, not over a mesh of {mesh.plan}")
+    elif sequence_parallel:
+        raise ValueError("sequence_parallel needs a mesh")
 
     def loss_fn(params, cp_params, batch):
+        # the pipeline recomputes each stage already (parallel.pipeline)
         return joint_loss(params, cp_params, cfg, batch, cp_weight=cp_weight,
-                          remat=remat)
+                          remat=remat and stack_fn is None, stack_fn=stack_fn,
+                          mesh=mesh, sequence_parallel=sequence_parallel)
 
     if distill is not None and distill_weight > 0.0:
         # function-space anchor: KL to the frozen base model on the
@@ -269,11 +421,17 @@ def make_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         device = state.opt_state.param_groups[0]["params"][0].device
         loss, metrics = loss_fn(state.params, state.cp_params,
-                                device_batch(batch, device))
-        loss.backward()
-        norm = _optimizer_update(state.opt_state, optimizer.clip)
+                                device_batch(dp_rows(batch, mesh), device))
+        if loss is not None:
+            loss.backward()
+        if stack_fn is not None:
+            stack_fn.backward()
+        sync = GradSync.of([(True, state.params), (False, state.cp_params)],
+                           mesh, sequence_parallel) if _sharded(mesh) else None
+        norm = _optimizer_update(state.opt_state, optimizer.clip, sync)
         state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = global_metrics({k: v.detach() for k, v in metrics.items()},
+                                 mesh, device)
         metrics["grad_norm"] = norm
         return state, metrics
 

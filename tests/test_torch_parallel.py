@@ -195,11 +195,14 @@ def test_cache_sharding_gives_the_local_kv_shape():
 
 
 def test_tp_all_reduce_is_a_no_op_without_a_tp_axis():
+    """The tp sum (``comm.reduce_from_tp``) and its transposes."""
     x = torch.arange(4.0)
-    calls = comm.ALL_REDUCE["calls"]
-    assert comm.tp_all_reduce(x, None) is x
-    assert comm.tp_all_reduce(x, tmesh.local_mesh()) is x
-    assert comm.ALL_REDUCE["calls"] == calls
+    calls = comm.STATS["tp_sum"]["calls"]
+    for op in (comm.reduce_from_tp, comm.copy_to_tp, comm.gather_seq,
+               comm.scatter_seq, comm.split_seq):
+        assert op(x, None) is x
+        assert op(x, tmesh.local_mesh()) is x
+    assert comm.STATS["tp_sum"]["calls"] == calls
     assert torch.equal(x, torch.arange(4.0))
 
 
@@ -365,9 +368,9 @@ def test_build_mesh_refuses_a_plan_of_another_size(tp2):
 
 @pytest.fixture(scope="module")
 def tp4():
-    """The dryrun's rank function on 4 gloo ranks: codes of the
-    tp-sharded model (each rank already checked them against its own
-    unsharded run)."""
+    """The dryrun's rank function on 4 gloo ranks (its train step at
+    pp2 tp2, then decode): codes of the tp-sharded model (each rank
+    already checked them against its own unsharded run)."""
     return comm.launch(dryrun.rank_main, 4, backend="gloo", device="cpu",
                        args=(4,))
 
@@ -400,6 +403,8 @@ def test_tp4_dryrun_codes_equal_the_jax_unsharded_engine(tp4, tp4_jax):
 
 
 def test_dryrun_cli_prints_its_ok_line():
+    """Two ranks: the JAX dry run's line at (dp=1, tp=2) with sp and the
+    train step's numbers (8 ranks: tests/test_torch_parallel_training.py)."""
     proc = subprocess.run(
         [sys.executable, "-m", "qwen3_tts_tpu_torch.parallel.dryrun",
          "--nprocs", "2", "--backend", "gloo", "--device", "cpu"],
@@ -407,5 +412,6 @@ def test_dryrun_cli_prints_its_ok_line():
         env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stderr[-2000:]
     last = proc.stdout.strip().splitlines()[-1]
-    assert last.startswith("dryrun_multichip ok: mesh=(pp=1, dp=1, tp=2)")
+    assert last.startswith(
+        "dryrun_multichip ok: mesh=(pp=1, dp=1, tp=2), sp=True, loss=")
     assert "cp_sharded=True" in last and "serve8_parity=ok(tp=2)" in last

@@ -387,14 +387,19 @@ def test_clip_follows_optax_formula():
 
 
 def test_unported_mesh_and_sequence_parallel_raise():
+    """Training across ranks is ported (tests/test_torch_parallel_training
+    .py); what JAX refuses still raises its ValueError, and the one-rank
+    mesh builds the one-device step."""
+    from qwen3_tts_tpu_torch.parallel.mesh import local_mesh
+
     cfg = tcfgs.tiny()
     opt = ttrain.default_optimizer()
-    for kw in ({"sequence_parallel": True},
-               {"mesh": {"dp": 1, "tp": 1, "pp": 2}},
-               {"mesh": {"dp": 2, "tp": 1}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            ttrain.make_train_step(cfg, opt, **kw)
-    ttrain.make_train_step(cfg, opt, mesh={"dp": 1, "tp": 1, "pp": 1})
+    with pytest.raises(ValueError, match="sequence_parallel needs a mesh"):
+        ttrain.make_train_step(cfg, opt, sequence_parallel=True)
+    with pytest.raises(ValueError, match="tp > 1"):
+        ttrain.make_train_step(cfg, opt, mesh=local_mesh(),
+                               sequence_parallel=True)
+    ttrain.make_train_step(cfg, opt, mesh=local_mesh())
 
 
 # ports of tests/test_loss_padding.py ----------------------------------------

@@ -3,10 +3,13 @@
 then the named phase, with the script's float rules.
 
     python3 tools/chip_phase.py parallel
+    python3 tools/chip_phase.py train_parallel
 
 ``parallel`` runs ``phase_parallel`` with no kernel shape checked before
 it (so it holds every kernel B shape of its ranks against the plain
-version) and prints its launches, shapes and seconds.
+version) and prints its launches, shapes and seconds. ``train_parallel``
+runs ``phase_train_parallel`` (eight training ranks on the card) and
+prints its launches (both 0) and seconds.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("phase", choices=("parallel",))
-    ap.parse_args()
+    ap.add_argument("phase", choices=("parallel", "train_parallel"))
+    args = ap.parse_args()
 
     import torch
 
@@ -36,6 +39,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     chip_smoke.phase_build()
     t0 = time.perf_counter()
+    if args.phase == "train_parallel":
+        counts = chip_smoke.phase_train_parallel(torch)
+        chip_smoke.log({"phase": "train_parallel", "step": "alone",
+                        "launches": counts,
+                        "phase_s": time.perf_counter() - t0})
+        return
     counts, shapes = chip_smoke.phase_parallel(torch, {})
     chip_smoke.log({"phase": "parallel", "step": "alone", "launches": counts,
                     "shapes": {k: len(v) for k, v in shapes.items()},
