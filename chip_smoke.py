@@ -30,11 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. a tiny model on the card (kernels) against the same model on the CPU
    (plain versions), under both int8 layouts: in bf16, prefill logits
    within tolerance and the greedy codes' agreement printed; in float32,
-   the greedy codes must equal the CPU's frame for frame;
+   the greedy codes must equal the CPU's frame for frame; step
+   ``assembly``: tiny float32 cb0 and residual_sum models on the card,
+   the AssemblyPlan's embedding (and trailing buffer) bit-equal to the
+   eager chain's for each speaker kind, a batched assembly of three
+   prompts equal to the single ones, and the greedy codes and PCM at
+   pipeline_depth 1, 2 and 3 equal;
 4. the main path at the flagship's full width, grouped int8 layout:
    load_model("synthetic:flagship") -> generate_audio -> audio_000.wav,
    checked (mono 16-bit 24 kHz, frames x hop samples, finite, not
-   silent) with kernel A's launches counted;
+   silent) with kernel A's launches counted; every main path's prompt
+   must assemble from its plan (``assembly``, with the host's
+   milliseconds for it, and the stream's ``pipeline_depth`` printed
+   beside TTFA and RTF);
 5. the same under QWEN3_TTS_INT8_LAYOUT=rowmajor, kernel B's launches
    counted;
 6. two more flagship-width paths under the grouped layout:
@@ -70,7 +78,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    configs.flagship_feedback_code2wav() at full width, eight streams (eight
    sentences and voices) of 36 frames after one warm run: aggregate RTF,
    TTFA p50/max, kernel A's launches per step and per frame, the shapes
-   it ran, peak memory, every WAV checked; then a generate_audio call of at
+   it ran, peak memory, every WAV checked, and the cold batch's
+   assemble_plans_batched and assemble_from_plan calls (every prompt must
+   assemble in a batched call); then a generate_audio call of at
    least three segments, which goes through the same engine;
 9. every (M, N, K, gs) a kernel ran on the main paths, in serving and in
    cloning that phase 2 did not cover is held against its plain version
@@ -195,12 +205,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    updated leaf within TRAIN_PAR_*_TOL), then a checkpoint round trip
    (saved gathered on rank 0, restored into other trees on the mesh, the
    next step's loss equal to the uninterrupted one's). Step
+   ``tiny_f32_anchor``: one step with the anchor and distillation terms
+   (frozen trees of other seeds, each rank's slices; TRAIN_PAR_TINY_TERMS)
+   held the same way, anchor_pen and distill_kl included. Step
    ``flagship_bf16``: the dense flagship at full width (each rank draws
    the tree leaf by leaf and keeps its slice), batch 8, two steps: the
    first's loss and grad norm against a one-rank step of the same tree on
    the card (TRAIN_PAR_BF16_*_RTOL, the differences printed), finite
    losses, kernels A and B never launched; per rank s/step, tp sums, SP
    gathers and pp shifts a step with their host seconds, peak memory.
+   Step ``flagship_bf16_anchor``: one step of a fresh state with both
+   terms (TRAIN_PAR_FLAGSHIP_TERMS, one frozen tree of other seeds as
+   anchor and teacher), its loss and grad norm against the same step on
+   one card rank (TRAIN_PAR_BF16_*_RTOL), s/step and peak memory.
    Step ``finetune``: finetune.main on two ranks (tp 2) on the dense
    flagship, two steps, its export decoded in this process.
 
@@ -653,9 +670,81 @@ def phase_reference(torch) -> None:
                 fail(f"tiny float32, {layout}: the card's greedy codes differ "
                      f"from the CPU's (equal for {lead} frames)")
     os.environ.pop("QWEN3_TTS_INT8_LAYOUT")
+    phase_reference_assembly(torch)
     phase_reference_import(torch)
     phase_reference_kv_int8(torch)
     phase_reference_clone(torch)
+
+
+def phase_reference_assembly(torch) -> None:
+    """Step ``assembly`` of phase 3: tiny float32 models with int8 weights
+    on the card, cb0 and residual_sum: the plan's (emb, pad, trailing)
+    bit-equal to the eager chain's on the card for each speaker kind and
+    made with no host read (torch.cuda.set_sync_debug_mode("error")), one
+    batched assembly of three prompts equal to the three single ones, and
+    the greedy codes and PCM at pipeline_depth 1, 2 and 3 equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen3_tts_tpu_torch.engine import configs
+    from qwen3_tts_tpu_torch.engine.api import Qwen3TTSModel
+    from qwen3_tts_tpu_torch.runtime.prompts import PromptSpec
+    from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
+
+    for proto, cfg in (("cb0", configs.tiny("custom", quant=True)),
+                       ("residual_sum", configs.tiny_feedback("custom"))):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        gen = Qwen3TTSModel.synthetic(cfg, seed=5, device="cuda").generator
+        gen.sampling = SamplingConfig(greedy=True)
+        kinds = {"table": {"speaker_id": 1}, "codec": {"speaker_token": 3},
+                 "none": {}}
+        for kind, kw in kinds.items():
+            prompt = PromptSpec(text_tokens=np.arange(9, dtype=np.int32) + 2,
+                                **kw)
+            plan = gen.fast_assembly_plan(prompt)
+            # the plan's device work reads nothing back on the host
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = gen.assemble_from_plan(plan)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            gen._fast_assembly = False
+            want = gen.assemble_prompt_full(prompt)
+            gen._fast_assembly = True
+            if got[1] != want[1] or not torch.equal(got[0], want[0]) or (
+                    got[2] is not None and not torch.equal(got[2], want[2])):
+                fail(f"reference assembly, {proto}, {kind}: the plan's "
+                     "embedding differs from the eager chain's on the card")
+        plans = [gen.fast_assembly_plan(PromptSpec(
+            text_tokens=np.arange(n, dtype=np.int32) + 5, speaker_id=1))
+            for n in (5, 12, 27)]
+        emb, trailing = gen.assemble_plans_batched(plans)
+        for i, plan in enumerate(plans):
+            e, _, tr = gen.assemble_from_plan(plan)
+            if not torch.equal(emb[i:i + 1], e) or (
+                    tr is not None and not torch.equal(trailing[i:i + 1], tr)):
+                fail(f"reference assembly, {proto}: batched plan {i} differs "
+                     "from its single assembly")
+        prompt = PromptSpec(text_tokens=np.arange(9, dtype=np.int32) + 2,
+                            speaker_id=1)
+        runs = {}
+        for depth in (1, 2, 3):
+            gen.pipeline_depth = depth
+            runs[depth] = gen.synthesize(prompt, max_frames=40,
+                                         collect_codes=True)
+        for depth, r in runs.items():
+            if r.frames != runs[1].frames or not (
+                    np.array_equal(r.codes, runs[1].codes)
+                    and np.array_equal(r.wav, runs[1].wav)):
+                fail(f"reference assembly, {proto}: greedy output at "
+                     f"pipeline_depth {depth} differs from depth 1's")
+        log({"phase": "reference", "step": "assembly", "protocol": proto,
+             "speaker_kinds": sorted(kinds), "plan_equals_eager": True,
+             "batched_equals_single": True, "depths": sorted(runs),
+             "frames": runs[1].frames, "greedy_equal_across_depths": True,
+             "last_assembly": gen.last_assembly})
 
 
 def _lead(got, want) -> int:
@@ -967,8 +1056,14 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
         fail(f"{where}: the waveform is silent or not finite")
     if counts[kernel] == 0:
         fail(f"{where}: kernel {kernel} never launched on the main path")
+    gen = model.generator
+    if gen.last_assembly["assembly"] != "plan":
+        fail(f"{where}: the prompt took the eager chain, not the plan")
     summary = {"frames_per_step": cfg.talker.frames_per_step,
                "mtp_cp_batch": cfg.talker.mtp_cp_batch,
+               "assembly": gen.last_assembly["assembly"],
+               "assembly_ms": gen.last_assembly["assembly_ms"],
+               "pipeline_depth": gen.pipeline_depth,
                "frames": m["frames"], "rtf": m["rtf"], "ttfa_s": m["ttfa_s"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "grouped_qmv_launches_per_frame":
@@ -978,6 +1073,9 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
          "frames_per_step": cfg.talker.frames_per_step,
          "frames": m["frames"], "audio_s": m["audio_s"], "wall_s": m["wall_s"],
          "rtf": m["rtf"], "ttfa_s": m["ttfa_s"], "load_s": load_s,
+         "assembly": summary["assembly"],
+         "assembly_ms": summary["assembly_ms"],
+         "pipeline_depth": summary["pipeline_depth"],
          "warmup_wall_s": warm["wall_s"], "samples": n,
          "startup_samples_dropped": skip,
          "peak_mem_gb": summary["peak_mem_gb"],
@@ -1917,6 +2015,20 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
             return payload
 
         engine.dispatch_step = counted
+        gen = engine.model.generator
+        assembled = {"batched_calls": 0, "batched_prompts": 0,
+                     "single_calls": 0}
+
+        def batched(plans):
+            assembled["batched_calls"] += 1
+            assembled["batched_prompts"] += len(plans)
+            return type(gen).assemble_plans_batched(gen, plans)
+
+        def single(plan):
+            assembled["single_calls"] += 1
+            return type(gen).assemble_from_plan(gen, plan)
+
+        gen.assemble_plans_batched, gen.assemble_from_plan = batched, single
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_kernels.reset_launch_counts()
@@ -1929,8 +2041,12 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
         shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
         peak = torch.cuda.max_memory_allocated() / 1e9
         del engine.dispatch_step  # the class's method again
-        return (results, _serving_step_row(results, wall, peak, counts,
-                                           sum(steps), cfg), counts, shapes)
+        del gen.assemble_plans_batched, gen.assemble_from_plan
+        if assembled["batched_prompts"] != len(prompts):
+            fail(f"serving: {assembled} assembled, not the {len(prompts)} "
+                 "cold prompts in batched calls")
+        row = _serving_step_row(results, wall, peak, counts, sum(steps), cfg)
+        return results, {**row, "assembly": assembled}, counts, shapes
 
     engine = model.serving_engine(SERVING_STREAMS)
     results, dense, counts, shapes = measured(engine)
@@ -3250,6 +3366,11 @@ TRAIN_PAR_LEAF_TOL = 1e-4               # of each leaf's max|.|
 # rounded at other points (each tp partial sum, the microbatch shapes), a
 # 2^-9 relative rounding compounded over 28 blocks; the loss averages
 # 8 x 40 rows, the grad norm weighs the largest grads
+# the anchor and distillation terms: tiny_f32_anchor's weights make the
+# penalty's grads move the grad norm (as the CPU tests' do); the flagship
+# step takes finetune's --anchor 0.1 --distill 0.1
+TRAIN_PAR_TINY_TERMS = {"anchor_weight": 1e4, "distill_weight": 10.0}
+TRAIN_PAR_FLAGSHIP_TERMS = {"anchor_weight": 0.1, "distill_weight": 0.1}
 TRAIN_PAR_BF16_LOSS_RTOL = 1e-2
 TRAIN_PAR_BF16_NORM_RTOL = 5e-2
 TRAIN_PAR_FT_RANKS = 2
@@ -3288,7 +3409,8 @@ def _comm_delta(before: dict, after: dict) -> dict:
             for kind in after}
 
 
-def train_parallel_rank(device, tiny_trees, batches, ckpt_dir) -> dict:
+def train_parallel_rank(device, tiny_trees, frozen_trees, batches,
+                        ckpt_dir) -> dict:
     """One rank of phase ``train_parallel`` (started by
     parallel.comm.launch; it prints nothing and raises on any fault)."""
     import copy
@@ -3315,13 +3437,13 @@ def train_parallel_rank(device, tiny_trees, batches, ckpt_dir) -> dict:
     mesh = build_mesh(_train_par_plan(), device)
     out = {"rank": mesh.rank, "coords": list(mesh.coords)}
 
-    def trained(cfg, p, cp):
+    def trained(cfg, p, cp, **terms):
         # eight ranks share the card: AdamW updates one leaf at a time,
         # without its multi-tensor temporaries (a rank's whole state again)
         opt = dataclasses.replace(default_optimizer(), foreach=False)
         state = init_train_state(p, cp, opt, mesh=mesh)
         step = make_train_step(cfg, opt, mesh=mesh, sequence_parallel=True,
-                               microbatches=TRAIN_PAR_MICRO)
+                               microbatches=TRAIN_PAR_MICRO, **terms)
         return state, step
 
     def whole(state):
@@ -3351,6 +3473,19 @@ def train_parallel_rank(device, tiny_trees, batches, ckpt_dir) -> dict:
                 step_s=time.perf_counter() - t0)
     out["tiny_f32"] = tiny
     del state, restored, fresh
+
+    # tiny_f32_anchor: one step with the anchor and distillation terms, the
+    # frozen trees (other seeds) this rank's slices, placed as the state's
+    t0 = time.perf_counter()
+    frozen = shard_for_training(cfg, *copy.deepcopy(frozen_trees), mesh)
+    state, step = trained(cfg, *shard_for_training(
+        cfg, *copy.deepcopy(tiny_trees), mesh), anchor=frozen, distill=frozen,
+        **TRAIN_PAR_TINY_TERMS)
+    state, m = step(state, batches["tiny"][0])
+    out["tiny_f32_anchor"] = {"metrics": {k: float(v) for k, v in m.items()},
+                              "leaves": whole(state),
+                              "step_s": time.perf_counter() - t0}
+    del state, frozen
 
     # flagship_bf16: each rank draws the tree leaf by leaf on the card and
     # keeps its slice (no rank holds the whole talker)
@@ -3383,6 +3518,31 @@ def train_parallel_rank(device, tiny_trees, batches, ckpt_dir) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / GB,
         "resident_gb": torch.cuda.memory_allocated() / GB,
         "launches": {k.name: k.launches for k in cuda_kernels.KERNELS}}
+    del state
+
+    # flagship_bf16_anchor: one step of a fresh state with both terms, the
+    # anchor and the teacher one frozen tree of other seeds (as finetune
+    # freezes one copy), each rank's slices drawn as the state's
+    torch.cuda.empty_cache()
+    keep = layer_keeper(mesh, cfg.talker.n_layers)
+    p = init_talker(cfg, 0, device=device, keep=keep)
+    cp = init_code_predictor(cfg, 1, device=device)
+    frozen = (init_talker(cfg, 2, device=device, keep=keep),
+              init_code_predictor(cfg, 3, device=device))
+    state, step = trained(cfg, p, cp, anchor=frozen, distill=frozen,
+                          **TRAIN_PAR_FLAGSHIP_TERMS)
+    del p, cp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_stats()
+    ts = time.perf_counter()
+    state, m = step(state, batches["flagship"][0])
+    metrics = {k: float(v) for k, v in m.items()}   # waits for the card
+    torch.cuda.synchronize()
+    out["flagship_bf16_anchor"] = {
+        **metrics, "step_s": time.perf_counter() - ts,
+        "comm": copy.deepcopy(comm.STATS),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / GB}
     return out
 
 
@@ -3409,18 +3569,19 @@ def train_parallel_finetune_rank(device, argv) -> dict:
             "launches": {k.name: k.launches for k in cuda_kernels.KERNELS}}
 
 
-def _one_rank_step(torch, cfg, p, cp, batch,
-                   leaves: bool = True) -> tuple[dict, dict | None]:
-    """One default_optimizer step of whole trees on their device: the
-    metrics (and step seconds) and, with ``leaves``, the updated leaves on
-    the host."""
+def _one_rank_step(torch, cfg, p, cp, batch, leaves: bool = True,
+                   **terms) -> tuple[dict, dict | None]:
+    """One default_optimizer step of whole trees on their device (with the
+    anchor and distillation ``terms`` of make_train_step): the metrics
+    (and step seconds) and, with ``leaves``, the updated leaves on the
+    host."""
     from qwen3_tts_tpu_torch.training import (
         default_optimizer, init_train_state, make_train_step)
 
     opt = default_optimizer()
     state = init_train_state(p, cp, opt)
     t0 = time.perf_counter()
-    state, m = make_train_step(cfg, opt)(state, batch)
+    state, m = make_train_step(cfg, opt, **terms)(state, batch)
     metrics = {k: float(v) for k, v in m.items()}   # waits for the card
     metrics["step_s"] = time.perf_counter() - t0
     return metrics, (_host_leaves([state.params, state.cp_params])
@@ -3431,20 +3592,25 @@ def _close(got: float, want: float, rtol: float) -> bool:
     return math.isfinite(got) and abs(got - want) <= rtol * abs(want)
 
 
-def _train_par_tiny_check(rk: dict, cpu: dict, cpu_leaves: dict) -> dict:
-    """Rank 0's tiny_f32 step against the CPU's one-rank step."""
-    got = rk["tiny_f32"]
+def _train_par_tiny_check(rk: dict, cpu: dict, cpu_leaves: dict,
+                          step: str = "tiny_f32") -> dict:
+    """Rank 0's tiny_f32 (or tiny_f32_anchor) step against the CPU's
+    one-rank step."""
+    got = rk[step]
     m = got["metrics"]
-    for key, rtol in (("talker_loss", TRAIN_PAR_LOSS_RTOL),
-                      ("cp_loss", TRAIN_PAR_LOSS_RTOL),
-                      ("loss", TRAIN_PAR_LOSS_RTOL),
-                      ("grad_norm", TRAIN_PAR_NORM_RTOL)):
+    keys = [("talker_loss", TRAIN_PAR_LOSS_RTOL),
+            ("cp_loss", TRAIN_PAR_LOSS_RTOL), ("loss", TRAIN_PAR_LOSS_RTOL),
+            ("grad_norm", TRAIN_PAR_NORM_RTOL)]
+    if step == "tiny_f32_anchor":
+        keys += [("anchor_pen", TRAIN_PAR_LOSS_RTOL),
+                 ("distill_kl", TRAIN_PAR_LOSS_RTOL)]
+    for key, rtol in keys:
         if not _close(m[key], cpu[key], rtol):
-            fail(f"train_parallel tiny_f32: {key} {m[key]} on 8 ranks vs "
+            fail(f"train_parallel {step}: {key} {m[key]} on 8 ranks vs "
                  f"{cpu[key]} on one CPU rank (rtol {rtol})")
     leaves = got["leaves"]
     if leaves.keys() != cpu_leaves.keys():
-        fail("train_parallel tiny_f32: the gathered trees differ in "
+        fail(f"train_parallel {step}: the gathered trees differ in "
              "structure from the one-rank trees")
     worst, worst_leaf = 0.0, None
     for k, want in cpu_leaves.items():
@@ -3453,21 +3619,25 @@ def _train_par_tiny_check(rk: dict, cpu: dict, cpu_leaves: dict) -> dict:
         if rel > worst:
             worst, worst_leaf = rel, k
     if worst > TRAIN_PAR_LEAF_TOL:
-        fail(f"train_parallel tiny_f32: leaf {worst_leaf} off by {worst} of "
+        fail(f"train_parallel {step}: leaf {worst_leaf} off by {worst} of "
              f"its max (bound {TRAIN_PAR_LEAF_TOL})")
+    row = {"loss": m["loss"], "cpu_loss": cpu["loss"],
+           "grad_norm": m["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
+           "loss_rtol": TRAIN_PAR_LOSS_RTOL,
+           "norm_rtol": TRAIN_PAR_NORM_RTOL, "leaves": len(cpu_leaves),
+           "worst_leaf_rel_err": worst, "worst_leaf": worst_leaf,
+           "leaf_tol": TRAIN_PAR_LEAF_TOL, "step_s": got["step_s"]}
+    if step == "tiny_f32_anchor":
+        return {**row, **TRAIN_PAR_TINY_TERMS,
+                **{k: m[k] for k in ("anchor_pen", "distill_kl")},
+                **{f"cpu_{k}": cpu[k] for k in ("anchor_pen", "distill_kl")}}
     if got["restored_step"] != 1 or not _close(
             got["loss_restored"], got["loss_cont"], TRAIN_PAR_LOSS_RTOL):
         fail(f"train_parallel tiny_f32: restored step {got['restored_step']}"
              f", next loss {got['loss_restored']} vs uninterrupted "
              f"{got['loss_cont']}")
-    return {"loss": m["loss"], "cpu_loss": cpu["loss"],
-            "grad_norm": m["grad_norm"], "cpu_grad_norm": cpu["grad_norm"],
-            "loss_rtol": TRAIN_PAR_LOSS_RTOL,
-            "norm_rtol": TRAIN_PAR_NORM_RTOL, "leaves": len(cpu_leaves),
-            "worst_leaf_rel_err": worst, "worst_leaf": worst_leaf,
-            "leaf_tol": TRAIN_PAR_LEAF_TOL,
-            "ckpt_next_loss": [got["loss_cont"], got["loss_restored"]],
-            "step_s": got["step_s"]}
+    return {**row,
+            "ckpt_next_loss": [got["loss_cont"], got["loss_restored"]]}
 
 
 def _comm_row(steps: list) -> dict:
@@ -3519,20 +3689,40 @@ def phase_train_parallel(torch) -> dict:
     # numpy draws on the host (the JAX package's values): the ranks and
     # the CPU reference start from copies of these trees
     tiny_trees = (init_talker(tiny_cfg, 0), init_code_predictor(tiny_cfg, 1))
+    # the anchor and teacher trees of step tiny_f32_anchor (other seeds)
+    frozen_trees = (init_talker(tiny_cfg, 5), init_code_predictor(tiny_cfg, 6))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)   # tiny CPU steps are op-overhead bound
     try:
         cpu, cpu_leaves = _one_rank_step(
             torch, tiny_cfg, *copy.deepcopy(tiny_trees), batches["tiny"][0])
+        frozen = copy.deepcopy(frozen_trees)
+        cpu_a, cpu_a_leaves = _one_rank_step(
+            torch, tiny_cfg, *copy.deepcopy(tiny_trees), batches["tiny"][0],
+            anchor=frozen, distill=frozen, **TRAIN_PAR_TINY_TERMS)
     finally:
         torch.set_num_threads(threads)
-    # the flagship's one-rank step on the card, freed before the ranks start
+    # the flagship's one-rank steps on the card (plain, then with both
+    # terms), freed before the ranks start
     torch.cuda.reset_peak_memory_stats()
     one, _ = _one_rank_step(torch, big_cfg,
                             init_talker(big_cfg, 0, device="cuda"),
                             init_code_predictor(big_cfg, 1, device="cuda"),
                             batches["flagship"][0], leaves=False)
     one["peak_mem_gb"] = torch.cuda.max_memory_allocated() / GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    frozen = (init_talker(big_cfg, 2, device="cuda"),
+              init_code_predictor(big_cfg, 3, device="cuda"))
+    one_a, _ = _one_rank_step(torch, big_cfg,
+                              init_talker(big_cfg, 0, device="cuda"),
+                              init_code_predictor(big_cfg, 1, device="cuda"),
+                              batches["flagship"][0], leaves=False,
+                              anchor=frozen, distill=frozen,
+                              **TRAIN_PAR_FLAGSHIP_TERMS)
+    one_a["peak_mem_gb"] = torch.cuda.max_memory_allocated() / GB
+    del frozen
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3545,7 +3735,7 @@ def phase_train_parallel(torch) -> dict:
         t0 = time.perf_counter()
         ranks = launch(train_parallel_rank, TRAIN_PAR_RANKS,
                        backend=PARALLEL_BACKEND, device=PARALLEL_DEVICE,
-                       args=(tiny_trees, batches, ckpt))
+                       args=(tiny_trees, frozen_trees, batches, ckpt))
         launch_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -3556,6 +3746,11 @@ def phase_train_parallel(torch) -> dict:
 
     row = _train_par_tiny_check(ranks[0], cpu, cpu_leaves)
     log({"phase": "train_parallel", "step": "tiny_f32", **where,
+         "config": "tiny, float32", "batch": list(TRAIN_PAR_TINY_BATCH),
+         **row})
+    row = _train_par_tiny_check(ranks[0], cpu_a, cpu_a_leaves,
+                                "tiny_f32_anchor")
+    log({"phase": "train_parallel", "step": "tiny_f32_anchor", **where,
          "config": "tiny, float32", "batch": list(TRAIN_PAR_TINY_BATCH),
          **row})
     counts = {k.name: 0 for k in cuda_kernels.KERNELS}
@@ -3600,6 +3795,30 @@ def phase_train_parallel(torch) -> dict:
             diffs["grad_norm"] > TRAIN_PAR_BF16_NORM_RTOL:
         fail(f"train_parallel flagship_bf16: first step {first} vs one "
              f"rank {one}")
+    anchored = [rk["flagship_bf16_anchor"] for rk in ranks]
+    got = anchored[0]
+    keys = ("loss", "grad_norm", "anchor_pen", "distill_kl")
+    if any(not all(math.isfinite(a[k]) for k in keys) or a["loss"] != got["loss"]
+           for a in anchored):
+        fail(f"train_parallel flagship_bf16_anchor: {anchored}")
+    diffs = {k: abs(got[k] - one_a[k]) / abs(one_a[k]) for k in keys}
+    log({"phase": "train_parallel", "step": "flagship_bf16_anchor", **where,
+         "config": "flagship, dense bf16", **TRAIN_PAR_FLAGSHIP_TERMS,
+         "batch": list(TRAIN_PAR_FLAGSHIP_BATCH),
+         **{k: got[k] for k in keys},
+         **{f"one_rank_{k}": one_a[k] for k in keys},
+         **{f"{k}_rel_diff": diffs[k] for k in keys},
+         "loss_rtol": TRAIN_PAR_BF16_LOSS_RTOL,
+         "norm_rtol": TRAIN_PAR_BF16_NORM_RTOL,
+         "s_per_step": [a["step_s"] for a in anchored],
+         "one_rank_step_s": one_a["step_s"],
+         "comm": got["comm"], "peak_mem_gb": [a["peak_mem_gb"]
+                                              for a in anchored],
+         "one_rank_peak_mem_gb": one_a["peak_mem_gb"]})
+    if diffs["loss"] > TRAIN_PAR_BF16_LOSS_RTOL or \
+            diffs["grad_norm"] > TRAIN_PAR_BF16_NORM_RTOL:
+        fail(f"train_parallel flagship_bf16_anchor: {got} vs one rank "
+             f"{one_a}")
     _check_no_launches("train_parallel", counts)
 
     with tempfile.TemporaryDirectory(prefix="q3tts_train_par_ft_") as tmp:

@@ -1,17 +1,18 @@
 """App configuration, model registry and generation presets (the JAX
-package's config.py, without its engine knobs).
+package's config.py).
 
 Paths resolve against the working directory at import; tests override
 them through the module globals. The registry, speakers, emotion and
 speed presets are the JAX package's, so the terminal app offers the same
-choices; engine configuration (widths, quantization, dtype) lives in
-``engine/configs.py``.
+choices. ``EngineSettings`` is the JAX package's record of engine knobs,
+which no loader reads there either; model geometry, quantization and
+dtype live in ``engine/configs.py``.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 # --- paths --------------------------------------------------------------------
 BASE_OUTPUT_DIR = os.path.join(os.getcwd(), "outputs")  # the app's WAVs
@@ -106,3 +107,16 @@ SPEED_PRESETS: dict[str, tuple[str, float]] = {
     "2": ("Fast", 1.3),
     "3": ("Slow", 0.8),
 }
+
+
+@dataclass
+class EngineSettings:
+    """Engine-level knobs (the JAX package's record; the reference has no
+    engine configuration)."""
+
+    dtype: str = "bfloat16"          # activation dtype
+    quant: str = "int8"              # weight quant: int8 | none (bf16)
+    max_decode_frames: int = 2048    # KV-cache length budget for one chunk
+    decode_chunk: int = 8            # frames decoded per chunk
+    mesh_shape: dict[str, int] = field(default_factory=lambda: {"dp": 1, "tp": 1})
+    use_pallas: str = "auto"         # the JAX package's kernel switch

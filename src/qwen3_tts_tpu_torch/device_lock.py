@@ -66,3 +66,13 @@ def device_lock(
                 warned = True
             time.sleep(max(0.1, min(10.0, deadline - time.time())))
 
+
+def require_device_lock(label: str, *, wait_s: float | None = None,
+                        path: str = LOCK_PATH) -> None:
+    """Acquire the device lock or exit with code 3: the gate of measurement
+    harnesses. Call after argument parsing and after any decision to run
+    on the CPU, so ``--help`` and CPU runs never contend."""
+    if not device_lock(wait_s=wait_s, label=label, path=path):
+        print(f"{label}: device lock never freed; aborting",
+              file=sys.stderr)
+        raise SystemExit(3)

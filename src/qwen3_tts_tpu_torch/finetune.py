@@ -421,10 +421,6 @@ def _main(args, cpu: bool) -> int:
         print(f"error: --sequence-parallel needs tp > 1 (mesh has "
               f"tp={plan.tp})", file=sys.stderr)
         return 1
-    if n_dev > 1 and (args.anchor > 0.0 or args.distill > 0.0):
-        print("error: --anchor/--distill train on one rank, not over a "
-              f"mesh of {n_dev}", file=sys.stderr)
-        return 1
     mesh = build_mesh(plan, device) if n_dev > 1 else None
 
     pairs = load_pairs(args.data)
@@ -522,18 +518,19 @@ def _main(args, cpu: bool) -> int:
         final_params = merge_lora(merge_trees(base, state.lora))
         final_cp = cp_params
     else:
-        anchor = distill = None
-        if args.anchor > 0.0 or args.distill > 0.0:
-            # fresh buffers: the train step updates state.params in place,
-            # so the frozen reference must not alias the initial params
-            frozen = (clone_tree(model.params), clone_tree(model.cp_params))
-            anchor = frozen if args.anchor > 0.0 else None
-            distill = frozen if args.distill > 0.0 else None
         params, cp_params = model.params, model.cp_params
         if mesh is not None:
             params, cp_params = shard_for_training(cfg, params, cp_params,
                                                    mesh)
             model.params = model.cp_params = None   # the whole trees go
+        anchor = distill = None
+        if args.anchor > 0.0 or args.distill > 0.0:
+            # fresh buffers of this rank's slices: the train step updates
+            # state.params in place, so the frozen reference must not alias
+            # the trees it trains
+            frozen = (clone_tree(params), clone_tree(cp_params))
+            anchor = frozen if args.anchor > 0.0 else None
+            distill = frozen if args.distill > 0.0 else None
         state = init_train_state(params, cp_params, opt, mesh=mesh)
         step = make_train_step(
             cfg, opt, anchor=anchor, anchor_weight=args.anchor,

@@ -260,6 +260,13 @@ def conv_state_spec(cc: CodecConfig) -> dict[str, tuple[int, int]]:
     return spec
 
 
+def init_conv_state(cc: CodecConfig, batch: int, dtype=torch.bfloat16,
+                    device="cpu") -> dict:
+    """Zeroed per-conv left contexts (== causal zero padding at start)."""
+    return {name: torch.zeros((batch, rows, ch), dtype=dtype, device=device)
+            for name, (rows, ch) in conv_state_spec(cc).items()}
+
+
 def init_codec_stream_state(cfg: ModelConfig, batch: int, *,
                             dtype=torch.bfloat16, device="cpu") -> dict:
     """Streaming state: latent-transformer KV caches (MAX_FRAMES long) +
@@ -275,8 +282,7 @@ def init_codec_stream_state(cfg: ModelConfig, batch: int, *,
     return {
         "tf_k": torch.zeros(cache_shape, dtype=dtype, device=device),
         "tf_v": torch.zeros(cache_shape, dtype=dtype, device=device),
-        "conv": {name: torch.zeros((batch, rows, ch), dtype=dtype, device=device)
-                 for name, (rows, ch) in conv_state_spec(cc).items()},
+        "conv": init_conv_state(cc, batch, dtype, device),
     }
 
 

@@ -89,6 +89,10 @@ class SpeechTokenizerConfig:
         return math.prod(self.upsampling_ratios) * (
             2 if self.frame_div > 1 else 1)
 
+    @property
+    def frame_rate(self) -> float:
+        return self.sampling_rate / self.hop
+
 
 # --------------------------------------------------------------------------
 # init (numpy, the JAX package's draws in its order)

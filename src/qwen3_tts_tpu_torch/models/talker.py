@@ -215,6 +215,10 @@ def mtp_logits(params: Params, t: TalkerConfig, hidden: torch.Tensor,
     return mtp_logits_emb(params, t, hidden, params["codec_emb"][prev_tok])
 
 
+def embed_text_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["text_emb"][tokens]
+
+
 def text_projection(params: Params, x: torch.Tensor) -> torch.Tensor:
     """The checkpoint's text-projection MLP when the tree has one (identity
     otherwise): the published talker family projects text hiddens into

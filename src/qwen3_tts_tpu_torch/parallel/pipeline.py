@@ -146,7 +146,7 @@ def pipeline_stack(
         if remat or not grad:
             with torch.no_grad():
                 y = body(blocks, inp, args(m))
-            stash[m] = inp.detach()
+            stash[m] = inp.detach() if grad else None
         else:
             inp = inp.detach().requires_grad_()
             y = body(blocks, inp, args(m))
@@ -168,7 +168,12 @@ class TalkerStack:
     [b, T, D] on the last stage (None on the others), and ``backward()``,
     called once after the loss's backward on every rank, finishes the
     pass. Under ``sequence_parallel`` the stream enters the pipeline as
-    this rank's T slice (``comm.enter_seq``) and leaves it whole."""
+    this rank's T slice (``comm.enter_seq``) and leaves it whole.
+
+    A step may run the stack more than once (the distillation's student
+    pass beside the loss's): ``backward()`` runs every pass made with
+    autograd, the last first; a pass under ``torch.no_grad()`` (the
+    teacher's) gets no backward ticks."""
 
     def __init__(self, cfg, mesh, microbatches: int, remat: bool,
                  sequence_parallel: bool):
@@ -177,7 +182,7 @@ class TalkerStack:
             raise ValueError(f"{L} stacked layers not divisible by pp={S}")
         self.cfg, self.mesh, self.microbatches = cfg, mesh, microbatches
         self.remat, self.sp = remat, sequence_parallel
-        self.run: PipelineRun | None = None
+        self.runs: list[PipelineRun] = []
 
     def __call__(self, blocks: Any, x_emb: torch.Tensor, pad_len):
         from ..models.layers import rope_tables, run_blocks
@@ -194,17 +199,18 @@ class TalkerStack:
                               rms_eps=t.rms_eps, qk_norm=True, pad_len=pad_mb,
                               mesh=mesh, sp=sp)
 
-        self.run = pipeline_stack(mesh, body, blocks, x, pad_len,
-                                  microbatches=self.microbatches,
-                                  remat=self.remat)
-        y = self.run.output
+        run = pipeline_stack(mesh, body, blocks, x, pad_len,
+                             microbatches=self.microbatches, remat=self.remat)
+        if torch.is_grad_enabled():
+            self.runs.append(run)
+        y = run.output
         if y is None:
             return None
         return exit_seq(y, mesh, T) if sp else y
 
     def backward(self) -> None:
-        run, self.run = self.run, None
-        if run is not None:
+        runs, self.runs = self.runs, []
+        for run in reversed(runs):
             run.backward()
 
 

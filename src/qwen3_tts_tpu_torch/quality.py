@@ -32,6 +32,35 @@ import numpy as np
 
 Transcribe = Callable[[str], "str | None"]
 
+# The offline mel-DTW gate of decode-recovery fine-tunes (the JAX
+# package's thresholds, calibrated there on its freeze-base rig):
+#   drift_db = mel-DTW(recovered at the base shape, original): the
+#     fine-tune's weight movement alone; every recovery stays under
+#     MEL_DRIFT_MAX_DB;
+#   total_db = mel-DTW(recovered at the trained shape, original): what the
+#     user hears after switching decode shape, gated only for lossless
+#     claims (speculative decode) under MEL_GATE_MAX_DB. Lossy shapes
+#     (fps > 1, plain dg > 1) make other valid utterances, whose mel-DTW
+#     saturates whatever their quality: their verdict rides the ASR WER.
+MEL_DRIFT_MAX_DB = 3.0
+MEL_GATE_MAX_DB = 6.0
+
+
+def mel_gate_passes(drift_db: float, total_db: float,
+                    lossless: bool) -> bool:
+    """The calibrated offline pass rule (see the constants above)."""
+    if drift_db > MEL_DRIFT_MAX_DB:
+        return False
+    return total_db <= MEL_GATE_MAX_DB if lossless else True
+
+
+DEFAULT_TEXTS = [
+    "The quick brown fox jumps over the lazy dog.",
+    "TPU inference keeps every decode shape static and bucketed.",
+    "She sells sea shells by the sea shore on a bright summer morning.",
+    "Quantized caches halve the attention window bandwidth.",
+]
+
 
 def wer(ref: str, hyp: str) -> float:
     """Word error rate via Levenshtein distance over whitespace tokens."""

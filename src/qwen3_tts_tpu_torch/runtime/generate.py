@@ -18,7 +18,14 @@ Eager PyTorch with the JAX package's structure:
   the merge of the fps frames' embeddings, so the talker advances one
   cache position per fps frames;
 - the host reads ONE packed tensor per chunk (valid-frame count, codes and
-  PCM), which is where EOS is detected and the chunk is clipped;
+  PCM), which is where EOS is detected and the chunk is clipped; its copy
+  starts at dispatch (pinned, ``non_blocking``), and ``Generator.stream``
+  keeps up to ``pipeline_depth`` chunks in flight once the first chunk is
+  read, so the host's read of chunk k overlaps the card's work on k+1;
+- the common prompt shapes assemble from an ``AssemblyPlan`` computed on
+  the host: one upload of the padded token rows, then gathers and masked
+  writes into the bucket on the device (``Generator.fast_assembly_plan``);
+  clone prompts and prompts that a bucket would cut keep the eager chain;
 - prompts are LEFT-padded to length buckets (RoPE is relative and padded
   keys are masked, so left padding is exact), and decode attention reads a
   bucketed prefix of the KV cache.
@@ -38,6 +45,7 @@ rank's ``torch.Generator`` alike.
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator
@@ -88,6 +96,64 @@ def attn_bucket(needed: int, s_max: int) -> int:
     return s_max
 
 
+@dataclass(frozen=True)
+class AssemblyPlan:
+    """A prompt assembly computed on the host (``Generator.fast_assembly_plan``):
+    everything ``Generator.assemble_plans_batched`` needs, with the shapes
+    and the left pad resolved without touching the device, so the serving
+    engine can defer the assembly and batch the cold start's prompts."""
+
+    proto: str        # "pub" (published residual_sum) | "cb0"
+    tb_tok: int       # text-token bucket (a power of two >= 8)
+    Lb: int           # prompt bucket
+    pad: int          # left pad inside the bucket
+    spk_kind: str     # "codec" | "table" | "none"
+    spk_idx: int
+    toks: np.ndarray  # [tb_tok] int32, zero past T
+    T: int
+
+
+class _HostCopy:
+    """One device->host copy: into pinned memory, ``non_blocking``, with a
+    CUDA event to wait on (a CPU tensor is its own host copy)."""
+
+    def __init__(self, dev: torch.Tensor, start: bool):
+        self.dev = dev
+        self.host = None
+        self.event = None
+        if start:
+            self.start()
+
+    def start(self) -> None:
+        if self.host is not None:
+            return
+        if not self.dev.is_cuda:
+            self.host = self.dev
+            return
+        self.host = torch.empty(self.dev.shape, dtype=self.dev.dtype,
+                                pin_memory=True)
+        self.host.copy_(self.dev, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def numpy(self) -> np.ndarray:
+        self.start()
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host->device copy of ``arr`` (through pinned memory and
+    ``non_blocking`` on CUDA, so the host does not wait for it)."""
+    host = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return host.to(device)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
+
+
 def _has_lora(tree: Any) -> bool:
     if isinstance(tree, dict):
         return "lora_a" in tree or any(_has_lora(v) for v in tree.values())
@@ -129,13 +195,31 @@ def fuse_decode_params(cp_params: Any, codec_params: Any,
     return cp_params, codec_params
 
 
+def fuse_talker_params(params: Any, mesh=None) -> Any:
+    """Opt-in (QWEN3_TTS_FUSE_TALKER=1) q/k/v -> qkv and gate/up -> gate_up
+    relayout of the TALKER's blocks: half the products a layer of a
+    single-frame pass. Off by default, as in the JAX package: the fused
+    copy sits beside the model's canonical split tree. A no-op for a tp
+    ``mesh``'s trees, for unmerged LoRA adapters and for an already fused
+    tree; identical numerics (``models.layers.attention`` and the MLP take
+    the fused keys)."""
+    if os.environ.get("QWEN3_TTS_FUSE_TALKER", "0") in ("0", ""):
+        return params
+    blocks = params.get("blocks")
+    if (not isinstance(blocks, dict) or "qkv" in blocks["attn"]
+            or _has_lora(params) or _sharded(mesh)):
+        return params
+    return {**params, "blocks": fuse_block_projections(blocks)}
+
+
 def group_quantized(*trees, device, mesh=None):
     """Relayout every quantized linear into the grouped format of kernel A
     when the QWEN3_TTS_INT8_LAYOUT policy says so for ``device`` (auto =
     grouped on CUDA). Runs after fuse_decode_params so the fused qkv /
-    gate_up projections are grouped too; identity on dense trees. A tp
-    ``mesh``'s trees keep the split row-major layout, as in the JAX
-    package: kernel B runs every int8 linear at the shard shapes."""
+    gate_up projections (fuse_talker_params' too) are grouped; identity on
+    dense trees. A tp ``mesh``'s trees keep the split row-major layout, as
+    in the JAX package: kernel B runs every int8 linear at the shard
+    shapes."""
     if _sharded(mesh) or not grouped_layout(device):
         return trees if len(trees) > 1 else trees[0]
     out = tuple(pack_grouped_tree(t) for t in trees)
@@ -502,6 +586,9 @@ class Generator:
     # adaptive chunk schedule (None = default_chunk_schedule); the last
     # entry repeats for the rest of the utterance
     chunk_schedule: tuple | None = None
+    # chunks kept in flight, counting the one being read, once the first
+    # chunk is read (1: no chunk dispatched ahead of a read)
+    pipeline_depth: int = 2
     # the tp mesh of trees that parallel.shard_model sliced (None: whole)
     mesh: Any = None
 
@@ -516,6 +603,7 @@ class Generator:
         self.dtype = torch_dtype(self.cfg)
         self.cp_params, self.codec_params = fuse_decode_params(
             self.cp_params, self.codec_params, self.mesh)
+        self.params = fuse_talker_params(self.params, self.mesh)  # opt-in
         self.params, self.cp_params, self.codec_params = group_quantized(
             self.params, self.cp_params, self.codec_params, device=self.device,
             mesh=self.mesh)
@@ -541,6 +629,14 @@ class Generator:
             self.chunk_schedule = default_chunk_schedule(t)
         self.chunk_schedule = align_chunk_schedule(
             self.chunk_schedule, t.frames_per_step)
+        # how the last stream's prompt was assembled ("plan" or "eager")
+        # and the host's milliseconds for it
+        self.last_assembly: dict | None = None
+
+    @property
+    def chunk(self) -> int:
+        """First-chunk size (TTFA granularity)."""
+        return self.chunk_schedule[0]
 
     def _prefill_fn(self):
         return make_prefill_fn(self.cfg, self.mesh)
@@ -563,6 +659,11 @@ class Generator:
 
     # -- prompt embedding (once per utterance) ----------------------------
 
+    def assemble_prompt(self, prompt: PromptSpec) -> tuple[torch.Tensor, int]:
+        """(emb [1, L_bucket, D], pad_len) of ``prompt``."""
+        emb, pad, _ = self.assemble_prompt_full(prompt)
+        return emb, pad
+
     def assemble_prompt_full(self, prompt: PromptSpec):
         """(emb [1, L_bucket, D], pad_len, trailing [1, Tb, D] or None): the
         trailing-text buffer exists under the residual_sum protocol only."""
@@ -576,10 +677,218 @@ class Generator:
         allowed = [b for b in PROMPT_BUCKETS if b <= max_prompt]
         return allowed[-1] if allowed else max_prompt
 
+    def _pub_head_len(self, spk_kind: str) -> int:
+        """Rows of the published prompt head, which the text does not change
+        (the text after its first four tokens conditions through the
+        trailing buffer): the one source of the plan's L, bucket and pad."""
+        return 3 + len(self.cfg.talker.codec_prompt_head) + (
+            1 if spk_kind != "none" else 0) + 2
+
+    def fast_assembly_plan(self, prompt: PromptSpec) -> AssemblyPlan | None:
+        """The ``AssemblyPlan`` of a common prompt, or None: clone
+        conditioning (a speaker vector or acoustic codes), a prompt too
+        short for the plan's layout, one that its bucket would cut, and
+        (cb0) one with both a speaker id and a speaker token keep the eager
+        chain. The tokenizer-mismatch ``ValueError`` is raised here, at plan
+        time, so a deferred plan does not postpone it."""
+        t = self.cfg.talker
+        if not getattr(self, "_fast_assembly", True):  # tests: eager chain
+            return None
+        if prompt.speaker_vector is not None:
+            return None
+        if prompt.acoustic_codes is not None and prompt.acoustic_codes.size:
+            return None
+        toks = np.asarray(prompt.text_tokens)
+        out_of_range = toks.size and (int(toks.max()) >= t.vocab_size
+                                      or int(toks.min()) < 0)
+        if t.feedback == "residual_sum":
+            if out_of_range:
+                raise ValueError(
+                    f"token id {int(toks.max())} out of range for "
+                    f"vocab_size {t.vocab_size}: tokenizer/config mismatch")
+            if toks.size < 4:
+                return None
+            if prompt.speaker_token is not None:
+                spk_kind, spk_idx = "codec", int(prompt.speaker_token)
+            elif prompt.speaker_id is not None:
+                spk_kind, spk_idx = "table", int(prompt.speaker_id)
+            else:
+                spk_kind, spk_idx = "none", 0
+            L = self._pub_head_len(spk_kind)
+            proto = "pub"
+        else:
+            if toks.size < 1 or (prompt.speaker_id is not None
+                                 and prompt.speaker_token is not None):
+                return None
+            if out_of_range:
+                # only tiny synthetic configs may alias ids, as the eager
+                # chain does
+                if t.vocab_size >= 512:
+                    raise ValueError(
+                        f"token id {int(toks.max())} out of range for "
+                        f"vocab_size {t.vocab_size}: tokenizer/config mismatch"
+                    )
+                toks = toks % t.vocab_size
+            if prompt.speaker_id is not None:
+                spk_kind, spk_idx = "table", int(prompt.speaker_id)
+            elif prompt.speaker_token is not None:
+                spk_kind, spk_idx = "codec", int(prompt.speaker_token)
+            else:
+                spk_kind, spk_idx = "none", 0
+            L = (spk_kind == "table") + toks.size + len(t.codec_prompt_head) \
+                + (spk_kind == "codec") + 1
+            proto = "cb0"
+        Lb = min(bucket_len(L), self._prompt_cap())
+        if L > Lb:  # a prompt the bucket cuts keeps the eager chain
+            return None
+        T = int(toks.size)
+        tb_tok = 8
+        while tb_tok < T:
+            tb_tok *= 2
+        padded = np.zeros(tb_tok, np.int32)
+        padded[:T] = toks
+        return AssemblyPlan(proto=proto, tb_tok=tb_tok, Lb=Lb, pad=Lb - L,
+                            spk_kind=spk_kind, spk_idx=spk_idx, toks=padded,
+                            T=T)
+
+    def assemble_from_plan(self, plan: AssemblyPlan):
+        """(emb [1, Lb, D], pad, trailing [1, Tb, D] or None) of one plan."""
+        emb, trailing = self.assemble_plans_batched([plan])
+        return emb, plan.pad, trailing
+
+    def assemble_plans_batched(self, plans: list):
+        """(emb [N, Lb, D], trailing [N, Tb, D] or None) of N plans that
+        share (proto, Lb, spk_kind): the row each bucket position takes is
+        worked out on the host, then ONE host->device copy carries the token
+        rows (lifted to the group's largest text bucket), the ids and those
+        row indices, and the card gathers the rows. No host read. Exactly
+        the N rows are built: eager PyTorch has no compile variants to
+        bound, so the batch is not padded to a power of two (the JAX
+        package pads it)."""
+        p0 = plans[0]
+        if any((p.proto, p.Lb, p.spk_kind) != (p0.proto, p0.Lb, p0.spk_kind)
+               for p in plans):
+            raise ValueError("assemble_plans_batched: plans of one "
+                             "(proto, Lb, spk_kind) group only")
+        tb = max(p.tb_tok for p in plans)
+        toks = np.zeros((len(plans), tb), np.int64)
+        for i, p in enumerate(plans):
+            toks[i, :p.tb_tok] = p.toks
+        T = np.array([p.T for p in plans])[:, None]
+        spk = np.array([p.spk_idx for p in plans])
+        if p0.proto == "pub":
+            return self._assemble_pub_rows(p0, toks, T, spk)
+        pad = np.array([p.pad for p in plans])[:, None]
+        return self._assemble_cb0_rows(p0, toks, T, pad, spk), None
+
+    def _uploaded(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """``arrays`` on the device (int64) through one ``_upload``."""
+        flat = _upload(np.concatenate([np.asarray(a, np.int64).ravel()
+                                       for a in arrays]), self.device)
+        return [x.view(a.shape) for x, a in
+                zip(flat.split([a.size for a in arrays]), arrays)]
+
+    def _assemble_cb0_rows(self, p0: AssemblyPlan, toks, T, pad,
+                           spk) -> torch.Tensor:
+        """``_assemble_cb0``'s rows, gathered from one table: the N prompts'
+        text rows, their tail rows (codec head, speaker token, BOS), their
+        speaker rows (table kind) and a zero row. Bucket row i of prompt n
+        holds its logical row j = i - pad: zero padding (j < 0), the
+        speaker (j = 0, table kind), a text row or a tail row."""
+        t = self.cfg.talker
+        p = self.params
+        N, tb = toks.shape
+        s = int(p0.spk_kind == "table")
+        cols = [np.broadcast_to(np.asarray(t.codec_prompt_head, np.int64),
+                                (N, len(t.codec_prompt_head)))]
+        if p0.spk_kind == "codec":
+            cols.append(spk[:, None])
+        cols.append(np.full((N, 1), t.codec_bos))
+        tail = np.concatenate(cols, axis=1)                    # [N, n_tail]
+        n_tail = tail.shape[1]
+        spk_row = N * tb + N * n_tail                          # table rows
+        zero = spk_row + s * N
+        n = np.arange(N)[:, None]
+        j = np.arange(p0.Lb)[None, :] - pad
+        idx = np.where(j < 0, zero, np.where(
+            j < s, spk_row + n, np.where(
+                j < s + T, n * tb + j - s, N * tb + n * n_tail + j - s - T)))
+        toks_d, tail_d, spk_d, idx_d = self._uploaded(toks, tail, spk, idx)
+        rows = [p["text_emb"][toks_d].flatten(0, 1),
+                p["codec_emb"][tail_d].flatten(0, 1)]
+        if s:
+            rows.append(p["spk_emb"][spk_d])
+        rows.append(p["text_emb"].new_zeros((1, p["text_emb"].shape[1])))
+        return torch.cat(rows)[idx_d]
+
+    def _assemble_pub_rows(self, p0: AssemblyPlan, toks, T, spk):
+        """``_assemble_published``'s rows (no clone rows, T >= 4), each the
+        sum of a gathered text-side row (the N prompts' projected text rows,
+        tts_pad, tts_bos, tts_eos, zero) and a codec-side row (their codec
+        ids' embeddings, their speaker rows, zero); the head is
+        text-independent, so its pad is static. The trailing buffer
+        gathers text rows 4..T-1 cut to Tb - 2, then tts_eos unless cut,
+        then tts_pad."""
+        t = self.cfg.talker
+        p = self.params
+        N, tb = toks.shape
+        nh = len(t.codec_prompt_head)
+        kind = p0.spk_kind
+        cols = [np.broadcast_to(np.asarray(t.codec_prompt_head, np.int64),
+                                (N, nh))]
+        if kind == "codec":
+            cols.append(spk[:, None])
+        cols += [np.full((N, 1), t.codec_pad), np.full((N, 1), t.codec_bos)]
+        codec_ids = np.concatenate(cols, axis=1)               # [N, k]
+        k = codec_ids.shape[1]
+        # text-side table: N * tb text rows, tts_pad, tts_bos, tts_eos, zero
+        PAD, BOS, EOS, ZERO_T = N * tb, N * tb + 1, N * tb + 2, N * tb + 3
+        # codec-side table: N * k codec rows, N speaker rows (table), zero
+        ZERO_C = N * k + (N if kind == "table" else 0)
+        n = np.arange(N)[:, None]
+        txt_col = [n * tb + r for r in range(3)]
+        left = txt_col + [PAD] * nh
+        right = [ZERO_C] * 3 + [n * k + h for h in range(nh)]
+        if kind != "none":
+            left.append(PAD)
+            right.append(n * k + nh if kind == "codec" else N * k + n)
+        left += [BOS, n * tb + 3]
+        right += [n * k + k - 2, n * k + k - 1]
+        left = [ZERO_T] * p0.pad + left
+        right = [ZERO_C] * p0.pad + right
+        left, right = (np.concatenate([np.broadcast_to(c, (N, 1))
+                                       for c in side], axis=1)
+                       for side in (left, right))
+        Tb = t.trailing_bucket
+        i = np.arange(Tb)[None, :]
+        n_trail = np.minimum(T - 4, Tb - 2)
+        trail = np.where(i < n_trail, n * tb + 4 + i, np.where(
+            (i == n_trail) & (T - 4 <= Tb - 2), EOS, PAD))
+        ctl = np.array([t.tts_pad_id, t.tts_bos_id, t.tts_eos_id])
+        ctl_d, toks_d, codec_d, spk_d, left_d, right_d, trail_d = \
+            self._uploaded(ctl, toks, codec_ids, spk, left, right, trail)
+        D = p["text_emb"].shape[1]
+        text_side = torch.cat([
+            text_projection(p, p["text_emb"][toks_d]).flatten(0, 1),
+            text_projection(p, p["text_emb"][ctl_d])])
+        text_side = torch.cat([text_side, text_side.new_zeros((1, D))])
+        codec_side = [p["codec_emb"][codec_d].flatten(0, 1)]
+        if kind == "table":
+            codec_side.append(p["spk_emb"][spk_d])
+        codec_side = torch.cat(codec_side + [
+            p["codec_emb"].new_zeros((1, p["codec_emb"].shape[1]))])
+        return (text_side[left_d] + codec_side[right_d],
+                text_side[trail_d])
+
     def _assemble_cb0(self, prompt: PromptSpec) -> tuple[torch.Tensor, int]:
         """The cb0-protocol prompt [speaker]? [text] [codec head]
         [speaker token]? [acoustic cb0]? [codec BOS], left-padded to a
-        bucket. Returns (emb [1, L_bucket, D], pad_len)."""
+        bucket: from the plan when ``fast_assembly_plan`` gives one, else
+        the eager chain. Returns (emb [1, L_bucket, D], pad_len)."""
+        plan = self.fast_assembly_plan(prompt)
+        if plan is not None:
+            emb, pad, _ = self.assemble_from_plan(plan)
+            return emb, pad
         t = self.cfg.talker
         p = self.params
         dev = self.device
@@ -650,7 +959,8 @@ class Generator:
         left-padded to a bucket. The rest of the text conditions during
         decode, one row a frame, then tts_eos, then tts_pad: the returned
         trailing buffer [1, Tb, D], whose last row is always tts_pad.
-        Returns (emb [1, L_bucket, D], pad_len, trailing)."""
+        From the plan when ``fast_assembly_plan`` gives one, else the eager
+        chain. Returns (emb [1, L_bucket, D], pad_len, trailing)."""
         t = self.cfg.talker
         p = self.params
         dev = self.device
@@ -660,6 +970,9 @@ class Generator:
             raise ValueError(
                 f"token id {int(toks_np.max())} out of range for "
                 f"vocab_size {t.vocab_size}: tokenizer/config mismatch")
+        plan = self.fast_assembly_plan(prompt)
+        if plan is not None:
+            return self.assemble_from_plan(plan)
         ctl = torch.tensor([t.tts_pad_id, t.tts_bos_id, t.tts_eos_id],
                            device=dev)
         pad_e, bos_e, eos_e = text_projection(p, p["text_emb"][ctl])
@@ -756,14 +1069,29 @@ class Generator:
         """Yield (wav_chunk int16 PCM [n], info) as audio becomes available;
         the last yield carries info["final"] = True and the whole utterance
         (the concatenation of the streamed chunks). ``collect_codes`` adds
-        the codec codes [Q, frames] to the final info."""
+        the codec codes [Q, frames] to the final info.
+
+        Speculative pipelining: once the first chunk is read, up to
+        ``pipeline_depth`` chunks are in flight (dispatched, their host
+        copies started), so the card decodes chunk k+1 while the host waits
+        for chunk k. Chunks dispatched past EOS cost compute, never the
+        output. The first chunk is read before the second is dispatched:
+        in eager PyTorch dispatching a chunk is the host's whole work for
+        it, so a second chunk queued ahead of the first read would land in
+        the time to first audio."""
         cfg = self.cfg
         t = cfg.talker
         fps = t.frames_per_step
         hop = cfg.codec.hop
         Q = cfg.codec.num_codebooks
         feedback = t.feedback == "residual_sum"
-        emb, pad, trailing = self.assemble_prompt_full(prompt)
+        t_asm = time.perf_counter()
+        plan = self.fast_assembly_plan(prompt)
+        emb, pad, trailing = (self.assemble_from_plan(plan) if plan is not None
+                              else self.assemble_prompt_full(prompt))
+        self.last_assembly = {
+            "assembly": "eager" if plan is None else "plan",
+            "assembly_ms": (time.perf_counter() - t_asm) * 1e3}
         Lb = emb.shape[1]
         # the talker cache (positions) and the codec's position tables
         # (frames) both cap the utterance
@@ -792,35 +1120,67 @@ class Generator:
         else:
             tok = seed_tokens(self.params, cfg, self.sampling, hidden_last,
                               logits, gen)                   # [1, fps]
-        pos, n_frames_dev, g = Lb, 0, 0
+        state = {"cache_k": cache_k, "cache_v": cache_v, "cstate": cstate,
+                 "pos": Lb, "tok": tok, "n_frames": 0, "g": 0}
+        if feedback:
+            state["res_sum"] = res_sum
+        inflight: list[tuple[int, _HostCopy]] = []
+        dispatched = 0
+
+        def dispatch(chunk: int) -> None:
+            """Enqueue one chunk and start the host copy of its packed
+            (valid count, codes, PCM): a fresh tensor, no view of the state
+            that the next chunk updates."""
+            nonlocal dispatched
+            st = state
+            # the attention window from the dispatched frames (a talker
+            # step advances one position per fps frames)
+            A = attn_bucket(Lb + (dispatched + chunk) // fps, cfg.max_seq_len)
+            if feedback:
+                (st["cache_k"], st["cache_v"], st["cstate"], st["pos"],
+                 st["tok"], st["n_frames"], st["res_sum"], st["g"], n_valid,
+                 codes, wav) = make_decode_chunk_fn_feedback(
+                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
+                    self.params, self.cp_params, self.codec_params,
+                    st["cache_k"], st["cache_v"], st["cstate"], trailing,
+                    st["pos"], pad, st["n_frames"], st["tok"], st["res_sum"],
+                    st["g"], gen)
+            else:
+                (st["cache_k"], st["cache_v"], st["cstate"], st["pos"],
+                 st["tok"], st["n_frames"], n_valid, codes,
+                 wav) = make_decode_chunk_fn(
+                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
+                    self.params, self.cp_params, self.codec_params,
+                    st["cache_k"], st["cache_v"], st["cstate"], st["pos"],
+                    pad, st["n_frames"], st["tok"], gen)
+            packed = torch.cat([
+                n_valid[:1].to(torch.int32),
+                codes[0].reshape(-1).to(torch.int32), wav[0].to(torch.int32),
+            ])
+            inflight.append((chunk, _HostCopy(packed, start=True)))
+            dispatched += chunk
 
         wav_pieces: list[np.ndarray] = []
         code_pieces: list[np.ndarray] = []
         n_frames = 0
         ttfa = None
+        done = False
         # the last chunk stops at the budget: positions past max_seq_len
         # have no cache rows (the JAX package clamps those writes and
         # discards the frames; here they are not computed)
-        for chunk in chunk_plan(self.chunk_schedule, max_frames, fps):
-            A = attn_bucket(pos + chunk // fps, cfg.max_seq_len)
-            if feedback:
-                (cache_k, cache_v, cstate, pos, tok, n_frames_dev, res_sum, g,
-                 n_valid, codes, wav) = make_decode_chunk_fn_feedback(
-                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
-                    self.params, self.cp_params, self.codec_params, cache_k,
-                    cache_v, cstate, trailing, pos, pad, n_frames_dev, tok,
-                    res_sum, g, gen)
-            else:
-                (cache_k, cache_v, cstate, pos, tok, n_frames_dev, n_valid,
-                 codes, wav) = make_decode_chunk_fn(
-                    cfg, chunk, self.sampling, A, mesh=self.mesh)(
-                    self.params, self.cp_params, self.codec_params, cache_k,
-                    cache_v, cstate, pos, pad, n_frames_dev, tok, gen)
+        chunks = chunk_plan(self.chunk_schedule, max_frames, fps)
+        pending = next(chunks, None)
+        depth = 1                    # until the first chunk is read
+        while True:
+            while pending is not None and not done and len(inflight) < depth:
+                dispatch(pending)
+                pending = next(chunks, None)
+            if not inflight:
+                break
             # ONE host read per chunk: valid count, codes and PCM packed
-            packed = torch.cat([
-                n_valid[:1].to(torch.int32), codes[0].reshape(-1).to(torch.int32),
-                wav[0].to(torch.int32),
-            ]).cpu().numpy()
+            chunk, copy = inflight.pop(0)
+            packed = copy.numpy()
+            depth = max(1, self.pipeline_depth)
             valid = int(packed[0])
             done = valid < chunk
             if valid >= max_frames - n_frames:

@@ -61,6 +61,7 @@ from ..models.layers import kv_cache_init, kv_env_format, rope_tables
 from ..models.talker import talker_forward
 from . import generate
 from .generate import (
+    _HostCopy,
     align_chunk_schedule,
     default_chunk_schedule,
     make_decode_chunk_fn,
@@ -84,36 +85,6 @@ def _defer_wav() -> bool:
     counts; a stream's first audible chunk and on_chunk consumers still get
     host audio per chunk, everything else is read at collect()."""
     return os.environ.get("QWEN3_TTS_DEFER_WAV", "0") != "0"
-
-
-class _HostCopy:
-    """One device->host copy: into pinned memory, ``non_blocking``, with a
-    CUDA event to wait on (a CPU tensor is its own host copy)."""
-
-    def __init__(self, dev: torch.Tensor, start: bool):
-        self.dev = dev
-        self.host = None
-        self.event = None
-        if start:
-            self.start()
-
-    def start(self) -> None:
-        if self.host is not None:
-            return
-        if not self.dev.is_cuda:
-            self.host = self.dev
-            return
-        self.host = torch.empty(self.dev.shape, dtype=self.dev.dtype,
-                                pin_memory=True)
-        self.host.copy_(self.dev, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
-
-    def numpy(self) -> np.ndarray:
-        self.start()
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
 
 
 @dataclass
@@ -171,10 +142,13 @@ class _PendingPrefill:
     """A submitted stream whose prompt is still being prefilled."""
 
     stream: Stream
-    emb: torch.Tensor         # [1, Lb, D] left-padded prompt embeddings
+    # [1, Lb, D] left-padded prompt embeddings; None while the assembly is
+    # deferred (``plan``)
+    emb: torch.Tensor | None
     pad: int
     Lb: int
     trailing: Any = None      # [1, Tb, D] trailing-text buffer (residual_sum)
+    plan: Any = None          # generate.AssemblyPlan of a deferred assembly
     # scratch caches [L, 1, Lb, H_kv, hd], allocated by the slice path
     sk: Any = None
     sv: Any = None
@@ -365,8 +339,17 @@ class ServingEngine:
                     f"{margin}-frame speculative margin); raise "
                     "accum_cap_frames or lower the budget"
                 )
-        emb, pad, trailing = self.model.generator.assemble_prompt_full(prompt)
-        Lb = emb.shape[1]
+        gen = self.model.generator
+        # a prompt with a plan defers its assembly (its bucket and pad are
+        # known on the host): the cold start's prompts then assemble in one
+        # batched call per group (_batch_cold_prefills); the plan raises a
+        # tokenizer mismatch here, as the eager chain does
+        plan = gen.fast_assembly_plan(prompt)
+        if plan is not None:
+            emb, pad, trailing, Lb = None, plan.pad, None, plan.Lb
+        else:
+            emb, pad, trailing = gen.assemble_prompt_full(prompt)
+            Lb = emb.shape[1]
         # cap against BOTH the talker cache (positions, fps frames each)
         # and the codec's position tables (frames); the 2-chunk margin
         # covers whole chunks dispatched past the budget
@@ -383,7 +366,8 @@ class ServingEngine:
         self._slots[slot] = stream
         self.streams[stream.stream_id] = stream
         self._pending.append(_PendingPrefill(
-            stream=stream, emb=emb, pad=pad, Lb=Lb, trailing=trailing))
+            stream=stream, emb=emb, pad=pad, Lb=Lb, trailing=trailing,
+            plan=plan))
         return stream.stream_id
 
     def _pick_slot(self, expected_end: int) -> int:
@@ -428,6 +412,9 @@ class ServingEngine:
         sliced = False
         while self._pending and not (self._live() and sliced):
             pp = self._pending[0]
+            if pp.emb is None:   # the deferred assembly (submit)
+                pp.emb, _, pp.trailing = \
+                    self.model.generator.assemble_from_plan(pp.plan)
             if pp.sk is None:
                 shape = self._kv_shape(1, pp.Lb)
                 pp.sk, pp.sv = self._kv_zeros(shape), self._kv_zeros(shape)
@@ -460,7 +447,10 @@ class ServingEngine:
         so N simultaneous submissions reach their first decode step after
         about one prefill. Exactly the group's rows are prefilled (eager
         PyTorch has no compile variants to bound). A group whose scratch
-        would exceed the row cap takes the slice path."""
+        would exceed the row cap takes the slice path. The group's deferred
+        prompts assemble with one ``assemble_plans_batched`` call per
+        (proto, spk_kind); prompts assembled at submit (clone prompts) keep
+        their embedding."""
         t = self.cfg.talker
         max_rows = int(os.environ.get("QWEN3_TTS_COLD_BATCH_ROWS",
                                       self._COLD_BATCH_MAX_ROWS))
@@ -472,6 +462,7 @@ class ServingEngine:
             nb = len(group)
             if nb < 2 or nb * Lb > max_rows:
                 continue
+            self._assemble_deferred(group)
             shape = self._kv_shape(nb, Lb)
             sk, sv = self._kv_zeros(shape), self._kv_zeros(shape)
             pads = torch.tensor([pp.pad for pp in group], device=self.device)
@@ -487,6 +478,22 @@ class ServingEngine:
                 self._pending.remove(pp)
             self._activate(group, sk, sv, hidden[:, -1], logits[:, -1],
                            trailing)
+
+    def _assemble_deferred(self, group: list[_PendingPrefill]) -> None:
+        """Assemble the deferred prompts of ``group`` (one bucket length):
+        one ``assemble_plans_batched`` call per (proto, spk_kind), each
+        prompt's rows views of its call's output."""
+        subgroups: dict[tuple, list[_PendingPrefill]] = {}
+        for pp in group:
+            if pp.emb is None:
+                subgroups.setdefault((pp.plan.proto, pp.plan.spk_kind),
+                                     []).append(pp)
+        gen = self.model.generator
+        for sub in subgroups.values():
+            emb, trailing = gen.assemble_plans_batched([pp.plan for pp in sub])
+            for i, pp in enumerate(sub):
+                pp.emb = emb[i:i + 1]
+                pp.trailing = None if trailing is None else trailing[i:i + 1]
 
     def _activate(self, group: list[_PendingPrefill], sk, sv, hidden, logits,
                   trailing) -> None:

@@ -416,24 +416,28 @@ def code_predictor_loss(params: Any, cp_params: Any, cfg: ModelConfig,
 
 
 def _kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-        mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean KL(teacher || student), nats, f32."""
+        mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Masked mean KL(teacher || student), nats, f32. Under a dp mesh: this
+    rank's masked sum over the global count."""
     ls = torch.log_softmax(student_logits.float(), dim=-1)
     lt = torch.log_softmax(teacher_logits.float(), dim=-1)
     kl = torch.sum(torch.exp(lt) * (lt - ls), dim=-1)
     m = mask.float()
-    return torch.sum(kl * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(kl * m) / _count(m, mesh)
 
 
 def sequential_distill_loss(
     params: Any, cp_params: Any, teacher: tuple, cfg_base: ModelConfig,
-    batch: dict, remat: bool = False,
-) -> torch.Tensor:
+    batch: dict, remat: bool = False, *, stack_fn: Any = None, mesh=None,
+    sequence_parallel: bool = False,
+) -> torch.Tensor | None:
     """Function-space anchor for decode-recovery fine-tunes: KL(base model
     || student) on the sequential decode path (``cfg_base``: fps=1, dg=1)
     for both the talker's cb0 logits and the code predictor's per-depth
     logits, teacher-forced on the batch. The teacher forwards run without
-    autograd (the JAX package's stop_gradient).
+    autograd (the JAX package's stop_gradient). ``stack_fn``, ``mesh`` and
+    ``sequence_parallel``: as ``joint_loss`` (both passes run through the
+    pipeline; None on a stage other than the last).
 
     A weight-space anchor (train.anchor_penalty) cannot hold greedy
     parity: decode turns on argmax, and grouped/MTP training reshapes the
@@ -442,19 +446,24 @@ def sequential_distill_loss(
     model's, while the grafted MTP chain and the grouped conditioning learn
     through the primary CE."""
     t_params, t_cp = teacher
+    hooks = {"stack_fn": stack_fn, "mesh": mesh,
+             "sequence_parallel": sequence_parallel}
     h_s, lg_s = _talker_hidden_and_logits(params, cfg_base, batch,
-                                          cp_params=cp_params, remat=remat)
+                                          cp_params=cp_params, remat=remat,
+                                          hooks=hooks)
     with torch.no_grad():
         h_t, lg_t = _talker_hidden_and_logits(t_params, cfg_base, batch,
-                                              cp_params=t_cp)
-    kl_talker = _kl(lg_s, lg_t, batch["frame_mask"])
+                                              cp_params=t_cp, hooks=hooks)
+    if h_s is None:
+        return None
+    kl_talker = _kl(lg_s, lg_t, batch["frame_mask"], mesh)
     flat_s, flat_codes, mask = _flat_frames(batch, h_s)
     cp_lg_s = code_predictor_teacher_logits(cp_params, cfg_base, flat_s,
                                             flat_codes, remat=remat)
     with torch.no_grad():
         cp_lg_t = code_predictor_teacher_logits(
             t_cp, cfg_base, h_t.reshape(flat_s.shape), flat_codes)
-    return kl_talker + _kl(cp_lg_s, cp_lg_t, mask)
+    return kl_talker + _kl(cp_lg_s, cp_lg_t, mask, mesh)
 
 
 def joint_loss(

@@ -185,6 +185,61 @@ def anchor_penalty(tree, ref, skip: tuple = ("mtp",)) -> torch.Tensor:
     return total / max(n, 1)
 
 
+def mesh_anchor_penalty(tree, ref, mesh, *, skip: tuple = ("mtp",),
+                        talker: bool = True,
+                        sequence_parallel: bool = False) -> tuple:
+    """``anchor_penalty`` over ``mesh``, where ``tree`` and ``ref`` are this
+    rank's slices (split as the training talker spec when ``talker``, else
+    replicated). Returns (term, value):
+
+    - ``value``: the JAX package's global mean, the squared distance summed
+      over every element of the whole trees over their whole count, equal
+      on every rank (a split leaf's partial sums summed over the axes that
+      split it; replicated leaves and dp replicas counted once);
+    - ``term``: what this rank's loss adds, each leaf's squared sum over
+      the whole count AND over the ranks whose grad sums (``GradSync``) add
+      this leaf's grad (dp; the pp line for a leaf every stage holds; tp for
+      a ``tp_partial`` leaf), so each leaf receives the penalty's grad once.
+    """
+    from ..parallel.comm import sum_
+    from ..parallel.sharding import (REPLICATED, leaf_splits,
+                                     talker_param_spec, tp_partial)
+
+    plan = mesh.plan
+    spec = leaf_splits(tree, talker_param_spec(tree, pp=plan.pp > 1)) \
+        if talker else {}
+    refs = dict(tree_leaves(ref))
+    term = None
+    parts = []          # (split kind: 0 whole, 1 tp, 2 pp, 3 both; sum)
+    n = 0
+    for path, x in tree_leaves(tree):
+        if any(s in path.lower() for s in skip):
+            continue
+        split = spec.get(path, REPLICATED)
+        tp_cut = split.tp is not None and plan.tp > 1
+        pp_cut = split.pp is not None and plan.pp > 1
+        d = (x - refs[path].detach()).float()
+        sq = torch.sum(d * d)
+        shares = plan.dp * (1 if pp_cut else plan.pp) * (
+            plan.tp if talker and tp_partial(tuple(path.split("/")),
+                                             sequence_parallel) else 1)
+        term = sq / shares if term is None else term + sq / shares
+        parts.append((tp_cut + 2 * pp_cut, sq.detach()))
+        n += x.numel() * (plan.tp if tp_cut else 1) * (
+            plan.pp if pp_cut else 1)
+    if term is None:
+        zero = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        return zero, zero
+    sums = torch.zeros(4, dtype=torch.float32, device=term.device)
+    for k, sq in parts:
+        sums[k] += sq
+    if plan.tp > 1:
+        sums[1::2] = sum_(sums[1::2].clone(), mesh.tp_group, mesh, "dp_sum")
+    if plan.pp > 1:
+        sums[2:] = sum_(sums[2:].clone(), mesh.pp_group, mesh, "dp_sum")
+    return term / n, sums.sum() / n
+
+
 def _sharded(mesh) -> bool:
     return mesh is not None and mesh.plan.n_devices > 1
 
@@ -309,21 +364,24 @@ def _optimizer_update(opt: torch.optim.Optimizer, clip: float,
 METRIC_KEYS = ("talker_loss", "cp_loss", "loss")
 
 
-def global_metrics(metrics: dict, mesh, device) -> dict:
-    """This rank's loss metrics (its dp rows' share of the global means;
-    empty on a pipeline stage other than the last) -> the global ones on
-    every rank: summed over the pp line, then over dp."""
+def global_metrics(metrics: dict, mesh, device,
+                   keys: tuple = METRIC_KEYS) -> dict:
+    """This rank's loss metrics ``keys`` (its dp rows' share of the global
+    means; absent on a pipeline stage other than the last) -> the global
+    ones on every rank: summed over the pp line, then over dp. Other
+    metrics (``anchor_pen``, global already) pass through."""
     from ..parallel.comm import sum_
 
     if not _sharded(mesh):
         return metrics
-    vec = (torch.stack([metrics[k].detach().float() for k in METRIC_KEYS])
-           if metrics else torch.zeros(len(METRIC_KEYS), device=device))
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    vec = torch.stack([metrics[k].detach().float() if k in metrics else zero
+                       for k in keys])
     for n, group in ((mesh.plan.pp, mesh.pp_group),
                      (mesh.plan.dp, mesh.dp_group)):
         if n > 1:
             vec = sum_(vec.clone(), group, mesh, "dp_sum")
-    return dict(zip(METRIC_KEYS, vec))
+    return {**metrics, **dict(zip(keys, vec))}
 
 
 def _base_config(cfg: ModelConfig) -> ModelConfig:
@@ -369,7 +427,12 @@ def make_train_step(
     ``microbatches`` microbatches (default 4 * pp; the batch must divide
     by it). ``sequence_parallel`` (needs a tp > 1 mesh) splits the
     residual stream along T over tp between the talker's blocks. The
-    anchor and distillation terms train on one rank."""
+    anchor and distillation terms train over a mesh too (their frozen trees
+    are this rank's slices, placed as the state's): the distillation's
+    student and teacher passes run through the pipeline (the teacher's
+    without autograd, so no backward tick runs for it) and its KL on the
+    last stage, beside the loss; ``mesh_anchor_penalty`` gives each leaf
+    the penalty's grad once."""
     stack_fn = None
     if mesh is not None:
         from ..parallel.pipeline import talker_stack_fn
@@ -380,17 +443,16 @@ def make_train_step(
             stack_fn = talker_stack_fn(
                 cfg, mesh=mesh, microbatches=microbatches or 4 * mesh.plan.pp,
                 remat=remat, sequence_parallel=sequence_parallel)
-        if _sharded(mesh) and (anchor_weight > 0.0 or distill_weight > 0.0):
-            raise ValueError("the anchor and distillation terms train on one "
-                             f"rank, not over a mesh of {mesh.plan}")
     elif sequence_parallel:
         raise ValueError("sequence_parallel needs a mesh")
+    # the pipeline recomputes each stage already (parallel.pipeline)
+    hooks = {"remat": remat and stack_fn is None, "stack_fn": stack_fn,
+             "mesh": mesh, "sequence_parallel": sequence_parallel}
+    summed = METRIC_KEYS
 
     def loss_fn(params, cp_params, batch):
-        # the pipeline recomputes each stage already (parallel.pipeline)
         return joint_loss(params, cp_params, cfg, batch, cp_weight=cp_weight,
-                          remat=remat and stack_fn is None, stack_fn=stack_fn,
-                          mesh=mesh, sequence_parallel=sequence_parallel)
+                          **hooks)
 
     if distill is not None and distill_weight > 0.0:
         # function-space anchor: KL to the frozen base model on the
@@ -399,11 +461,14 @@ def make_train_step(
 
         cfg_base = _base_config(cfg)
         ce_loss_fn = loss_fn
+        summed = METRIC_KEYS + ("distill_kl",)
 
         def loss_fn(params, cp_params, batch):  # noqa: F811
             loss, metrics = ce_loss_fn(params, cp_params, batch)
             kl = sequential_distill_loss(params, cp_params, distill,
-                                         cfg_base, batch, remat=remat)
+                                         cfg_base, batch, **hooks)
+            if kl is None:   # a pipeline stage other than the last
+                return loss, metrics
             return loss + distill_weight * kl, {**metrics, "distill_kl": kl}
 
     if anchor is not None and anchor_weight > 0.0:
@@ -414,9 +479,20 @@ def make_train_step(
 
         def loss_fn(params, cp_params, batch):  # noqa: F811
             loss, metrics = inner_loss_fn(params, cp_params, batch)
-            pen = anchor_penalty(params, a_params) + anchor_penalty(
-                cp_params, a_cp, skip=())
-            return loss + anchor_weight * pen, {**metrics, "anchor_pen": pen}
+            if _sharded(mesh):
+                t_p, v_p = mesh_anchor_penalty(
+                    params, a_params, mesh,
+                    sequence_parallel=sequence_parallel)
+                t_cp, v_cp = mesh_anchor_penalty(cp_params, a_cp, mesh,
+                                                 skip=(), talker=False)
+                term, pen = t_p + t_cp, v_p + v_cp
+            else:
+                term = pen = anchor_penalty(params, a_params) + \
+                    anchor_penalty(cp_params, a_cp, skip=())
+            # every stage adds its term (loss is None off the last stage)
+            loss = anchor_weight * term if loss is None \
+                else loss + anchor_weight * term
+            return loss, {**metrics, "anchor_pen": pen}
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         device = state.opt_state.param_groups[0]["params"][0].device
@@ -431,7 +507,7 @@ def make_train_step(
         norm = _optimizer_update(state.opt_state, optimizer.clip, sync)
         state.step += 1
         metrics = global_metrics({k: v.detach() for k, v in metrics.items()},
-                                 mesh, device)
+                                 mesh, device, summed)
         metrics["grad_norm"] = norm
         return state, metrics
 

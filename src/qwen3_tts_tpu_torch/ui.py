@@ -2,8 +2,8 @@
 (the JAX package's ui.py).
 
 ``rich`` and ``prompt_toolkit`` are imported inside the functions that use
-them, never at import: ``console`` is a module-level object that builds the
-themed rich ``Console`` at its first use. So this module, and ``io``,
+them, never at import: ``console`` and ``THEME`` are module-level objects
+that build the themed rich ``Console`` and its ``Theme`` at their first use. So this module, and ``io``,
 ``voices``, ``sessions`` and ``app`` above it, import where neither package
 is installed, and a session runs there with a stand-in console in place of
 the modules' ``console``. Without ``prompt_toolkit`` the prompts read lines
@@ -28,9 +28,30 @@ THEME_STYLES = {
 }
 
 
+class ThemedTheme:
+    """The app's rich ``Theme`` (THEME_STYLES), built at its first use:
+    ``rich()`` is the Theme itself, and every attribute is the Theme's."""
+
+    def __init__(self):
+        self._theme = None
+
+    def rich(self):
+        if self._theme is None:
+            from rich.theme import Theme
+
+            self._theme = Theme(THEME_STYLES)
+        return self._theme
+
+    def __getattr__(self, name):
+        return getattr(self.rich(), name)
+
+
+THEME = ThemedTheme()
+
+
 class ThemedConsole:
-    """The app's one rich ``Console`` (THEME_STYLES, no highlighting),
-    built at the first attribute read; every attribute is the Console's."""
+    """The app's one rich ``Console`` (THEME, no highlighting), built at
+    the first attribute read; every attribute is the Console's."""
 
     def __init__(self):
         self._console = None
@@ -38,9 +59,8 @@ class ThemedConsole:
     def __getattr__(self, name):
         if self._console is None:
             from rich.console import Console
-            from rich.theme import Theme
 
-            self._console = Console(theme=Theme(THEME_STYLES), highlight=False)
+            self._console = Console(theme=THEME.rich(), highlight=False)
         return getattr(self._console, name)
 
 

@@ -73,6 +73,12 @@ DRYRUN_LOSS_RTOL = 1e-3
 DRYRUN_NORM_RTOL = 3e-2
 LR = 1e-4
 LORA_LR = 1e-2
+# the anchor's and the distillation's weights: at these the penalty's grads
+# move the grad norm from 3.10 to 5.3 and the KL's by 5% (tiny f32, one
+# device), so a term whose grad entered the grad sums pp x or dp x, or not
+# at all, misses NORM_RTOL by orders of magnitude
+ANCHOR_W = 1e4
+DISTILL_W = 10.0
 
 
 def _f32(cfg):
@@ -117,8 +123,15 @@ def _masked_halves(batch: dict) -> dict:
     return out
 
 
-def _trees(jc):
-    return init_talker(jc, 0), init_code_predictor(jc, 1)
+def _trees(jc, seeds=(0, 1)):
+    return init_talker(jc, seeds[0]), init_code_predictor(jc, seeds[1])
+
+
+def _frozen(jc) -> dict:
+    """Anchor and teacher trees unlike the trained ones (other seeds), so
+    the penalty and the KL are far from zero from the first step."""
+    return {"anchor": _trees(jc, (5, 6)), "anchor_weight": ANCHOR_W,
+            "distill": _trees(jc, (7, 8)), "distill_weight": DISTILL_W}
 
 
 def _key(path) -> str:
@@ -137,8 +150,10 @@ def _jnp(tree):
 
 # -- the JAX references ------------------------------------------------------
 
-def _jax_steps(jc, trees, batches, mesh=None, sp=False, microbatches=0):
-    """Each step's metrics and whole (talker, cp) trees after it."""
+def _jax_steps(jc, trees, batches, mesh=None, sp=False, microbatches=0,
+               frozen=None):
+    """Each step's metrics and whole (talker, cp) trees after it;
+    ``frozen``: the anchor and distillation terms (``_frozen``)."""
     opt = jtrain.default_optimizer(lr=LR)
     p, cp = _jnp(trees)
     put = (lambda b: _jnp(b))
@@ -151,9 +166,14 @@ def _jax_steps(jc, trees, batches, mesh=None, sp=False, microbatches=0):
             return {k: jax.device_put(jnp.asarray(v), sh)
                     for k, v in b.items()}
     state = jtrain.init_train_state(p, cp, opt)
+    terms = {} if frozen is None else {
+        "anchor": _jnp(frozen["anchor"]),
+        "anchor_weight": frozen["anchor_weight"],
+        "distill": _jnp(frozen["distill"]),
+        "distill_weight": frozen["distill_weight"]}
     step = jtrain.make_train_step(jc, opt, remat=mesh is not None, mesh=mesh,
                                   microbatches=microbatches,
-                                  sequence_parallel=sp)
+                                  sequence_parallel=sp, **terms)
     out = {"metrics": [], "trees": []}
     for b in batches:
         state, m = step(state, put(b))
@@ -233,6 +253,12 @@ def _mesh_cases(tmp: str) -> dict:
                      "microbatches": 4, "batches": [b1, b2]},
         "pp_dp_tp_sp": {"kind": "step", **cb0, "plan": (2, 2, 2), "sp": True,
                         "microbatches": 4, "batches": [b1]},
+        "pp_dp_tp_anchor": {"kind": "step", **cb0, **_frozen(CB0),
+                            "plan": (2, 2, 2), "microbatches": 4,
+                            "batches": [b1, b2]},
+        "pp_dp_tp_sp_anchor": {"kind": "step", **cb0, **_frozen(CB0),
+                               "plan": (2, 2, 2), "sp": True,
+                               "microbatches": 4, "batches": [b1]},
         "grads_pp_dp_tp": {"kind": "grads", **cb0, "plan": (2, 2, 2),
                            "microbatches": 4, "batches": [b1]},
         "pp_only": {"kind": "step", **cb0, "plan": (2, 1, 1),
@@ -264,7 +290,8 @@ def _finetune_cases(tmp: str) -> dict:
 
     def argv(model, name):
         return ["--model", model, "--data", data, "--batch-size", "4",
-                "--steps", "2", "--lr", "1e-2",
+                "--steps", "2", "--lr", "1e-2", "--anchor", "0.1",
+                "--distill", "0.1",
                 "--ckpt-dir", os.path.join(tmp, f"ck_{name}"),
                 "--export", os.path.join(tmp, f"export_{name}")]
 
@@ -299,6 +326,8 @@ def runs():
         trees = _trees(CB0)
         jax_refs = {
             "plain": _jax_steps(CB0, trees, [b1, b2]),
+            "anchored": _jax_steps(CB0, trees, [b1, b2],
+                                   frozen=_frozen(CB0)),
             "mesh_sp": _jax_steps(CB0, trees, [b1], _jax_mesh((2, 2, 2)),
                                   sp=True, microbatches=4),
             "grads": _jax_grads(CB0, trees, b1),
@@ -415,6 +444,25 @@ def test_pp_train_step_matches_plain_step(runs, step):
     plain steps (the second from the first's updated state)."""
     got, want = runs["mesh"]["pp_dp_tp"], runs["jax"]["plain"]
     _close_metrics(got["metrics"][step], want["metrics"][step])
+    _close_trees(got["trees"][step], want["trees"][step])
+
+
+@pytest.mark.parametrize("case,step", [("pp_dp_tp_anchor", 0),
+                                       ("pp_dp_tp_anchor", 1),
+                                       ("pp_dp_tp_sp_anchor", 0)])
+def test_anchor_and_distill_over_the_mesh_match_the_plain_step(runs, case,
+                                                               step):
+    """pp2 dp2 tp2, without and with sequence parallelism: the step with
+    the anchor and distillation terms (frozen trees of other seeds: this
+    rank's slices) against JAX's plain step with both. The loss terms,
+    anchor_pen (the global mean of the whole trees), distill_kl (the
+    teacher's pass through the pipeline too), the grad norm (each leaf
+    gets the penalty's grad once across the grad sums) and the updated
+    trees; the second step from the first's state."""
+    got, want = runs["mesh"][case], runs["jax"]["anchored"]
+    _close_metrics(got["metrics"][step], want["metrics"][step],
+                   keys=("talker_loss", "cp_loss", "loss", "anchor_pen",
+                         "distill_kl"))
     _close_trees(got["trees"][step], want["trees"][step])
 
 
@@ -584,9 +632,10 @@ def test_errors_of_the_jax_step():
         cfg.talker, n_layers=3))
     with pytest.raises(ValueError, match="not divisible"):
         talker_stack_fn(odd, mesh=_mesh_record(pp=2), microbatches=2)
-    with pytest.raises(ValueError, match="one rank"):
-        make_train_step(cfg, opt, mesh=_mesh_record(dp=2),
-                        anchor=({}, {}), anchor_weight=0.1)
+    # the anchor and distillation terms take a mesh, as the JAX step does
+    assert callable(make_train_step(cfg, opt, mesh=_mesh_record(dp=2),
+                                    anchor=({}, {}), anchor_weight=0.1,
+                                    distill=({}, {}), distill_weight=0.1))
 
 
 def test_finetune_needs_backend_under_torchrun(tmp_path, capsys):

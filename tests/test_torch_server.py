@@ -4,6 +4,7 @@ tests/test_client.py and tests/test_batch.py, on one tiny float32 greedy
 service over a real ThreadingHTTPServer on loopback, plus the parity of
 its WAV with the JAX package's TTSService on the same numpy tree."""
 
+import dataclasses
 import io
 import json
 import os
@@ -560,3 +561,41 @@ def test_clients_that_connect_at_once_all_wait_in_the_backlog():
             s.close()
         srv.server_close()
     assert len(socks) == 12
+
+
+def test_service_serves_feedback_protocol_model():
+    """tests/test_server.py::test_service_serves_feedback_protocol_model:
+    the daemon's service loop over a published-protocol model (the engine's
+    residual-sum feedback step underneath) returns a finished WAV, whose
+    PCM is the JAX TTSService's on the same numpy tree within PCM_LSB."""
+    jc = dataclasses.replace(jcfgs.tiny_feedback("custom"), dtype="float32")
+    tc = dataclasses.replace(tcfgs.tiny_feedback("custom"), dtype="float32")
+    trees = (init_talker(jc, 0), init_code_predictor(jc, 1),
+             tame_codec(init_codec(jc, 2)))
+    params, cp_params, codec_params = params_from_numpy(*trees, device="cpu")
+    model = Qwen3TTSModel(cfg=tc, params=params, cp_params=cp_params,
+                          codec_params=codec_params, tokenizer=ByteTokenizer(),
+                          device=torch.device("cpu"))
+    jmodel = JaxModel(cfg=jc, params=trees[0], cp_params=trees[1],
+                      codec_params=trees[2], tokenizer=JaxByteTokenizer())
+    req = {"text": "daemon over the published protocol",
+           "voice": sorted(tc.speakers)[0], "max_frames": 8}
+    pcm = {}
+    for name, service in (
+            ("port", TTSService(model, max_streams=2,
+                                sampling=SamplingConfig(greedy=True))),
+            ("jax", JaxService(jmodel, max_streams=2,
+                               sampling=JaxSampling(greedy=True)))):
+        service.engine.chunk = 4
+        service.start()
+        try:
+            job = service.submit(**req)
+            kind, payload, chunks = _drain(job)
+            assert kind == "done", (name, payload)
+            assert job.frames > 0, name
+            pcm[name] = np.concatenate(chunks).astype(np.int32)
+        finally:
+            service.stop(timeout=TIMEOUT)
+    assert pcm["port"].shape == pcm["jax"].shape
+    assert np.abs(pcm["port"] - pcm["jax"]).max() <= PCM_LSB
+    assert np.abs(pcm["jax"]).max() > 1000  # live audio

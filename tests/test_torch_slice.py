@@ -348,3 +348,97 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
 
+
+
+JAX_PKG = ROOT / "src" / "qwen3_tts_tpu"
+# JAX names the port holds under another name, or in another module:
+# "module::name" -> "port module::name" (a class's members follow it)
+MAPPED = {
+    "ops/linear.py::quantized_matmul":
+        "ops/dequant_matmul.py::quantized_matmul",
+    "ops/linear.py::quantized_matmul_xla":
+        "ops/dequant_matmul.py::quantized_matmul_ref",
+    "ops/pallas_matmul.py::quantized_matmul_pallas":
+        "ops/dequant_matmul.py::dequant_matmul_cuda",
+    "ops/pallas_matmul.py::pallas_compatible":
+        "ops/dequant_matmul.py::plan_kernel_b",
+    "ops/grouped_qmv.py::quantized_matmul_grouped_xla":
+        "ops/grouped_qmv.py::quantized_matmul_grouped_ref",
+    "ops/grouped_qmv.py::pallas_grouped_compatible":
+        "ops/grouped_qmv.py::plan_kernel_a",
+    "models/code2wav.py::Code2WavConfig": "engine/configs.py::Code2WavConfig",
+    # transformer_block returns the block's output (the caches are written
+    # in place); the JAX BlockOut also carries the caches
+    "models/layers.py::BlockOut": "models/layers.py::transformer_block",
+}
+# JAX names whose absence a departure of ROADMAP.md §C records, cited by
+# its words
+DEPARTED = {
+    "engine/__init__.py::enable_compilation_cache":
+        "*No compilation cache*, because eager PyTorch compiles nothing.",
+    "ops/__init__.py::default_backend":
+        "**The kernel follows the tensor's device.**",
+    "ops/__init__.py::use_pallas":
+        "**The kernel follows the tensor's device.**",
+}
+
+
+def _public_names(path: Path) -> set:
+    """Top-level functions, classes and UPPER constants, and the methods
+    and properties of the classes, of one module (read with ast)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            if node.name.startswith("_"):
+                continue
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out.update(f"{node.name}.{m.name}" for m in node.body
+                           if isinstance(m, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef))
+                           and not m.name.startswith("_"))
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            out.update(t.id for t in targets if isinstance(t, ast.Name)
+                       and t.id.isupper() and not t.id.startswith("_"))
+    return out
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Every public name of every JAX module (functions, classes, their
+    methods and properties, UPPER constants) is in the port's module of
+    the same path, or MAPPED to a port name that exists, or DEPARTED with
+    words that ROADMAP.md §C holds. Both packages are read with ast;
+    neither is imported."""
+    roadmap = " ".join((ROOT / "ROADMAP.md").read_text().split())
+    section_c = roadmap[roadmap.index("### C."):roadmap.index("## Recent")]
+    port_names: dict = {}
+
+    def port(rel: str) -> set:
+        if rel not in port_names:
+            path = PORT / rel
+            port_names[rel] = _public_names(path) if path.exists() else set()
+        return port_names[rel]
+
+    missing = []
+    for path in sorted(JAX_PKG.rglob("*.py")):
+        rel = path.relative_to(JAX_PKG).as_posix()
+        for name in sorted(_public_names(path) - port(rel)):
+            owner, _, member = name.partition(".")
+            key = f"{rel}::{owner}"
+            if key in MAPPED:
+                target_rel, target = MAPPED[key].split("::")
+                want = f"{target}.{member}" if member else target
+                assert want in port(target_rel), (name, MAPPED[key])
+            elif f"{rel}::{name}" in DEPARTED:
+                words = DEPARTED[f"{rel}::{name}"]
+                assert words in section_c, (name, words)
+            else:
+                missing.append(f"{rel}::{name}")
+    assert not missing, missing
+    # no stale entry: each names a JAX name the port's module lacks
+    for key in list(MAPPED) + list(DEPARTED):
+        rel, name = key.split("::")
+        assert name in _public_names(JAX_PKG / rel) - port(rel), key

@@ -54,10 +54,10 @@ def _mesh(plan: tuple, device):
     return build_mesh(p, device, replicas=dist.get_world_size() // p.n_devices)
 
 
-def _trees(case: dict, device):
+def _trees(case: dict, device, key: str = "trees"):
     """Tensor copies of the case's numpy trees on ``device`` (the optimizer
     updates leaves in place; tree_to would share numpy memory)."""
-    return tree_to(copy.deepcopy(case["trees"]), device)
+    return tree_to(copy.deepcopy(case[key]), device)
 
 
 def _numpy(tree):
@@ -87,9 +87,14 @@ def step_case(case: dict, device) -> dict:
     p, cp = shard_for_training(cfg, *_trees(case, "cpu"), mesh)
     opt = default_optimizer(lr=case.get("lr", 1e-4))
     state = init_train_state(p, cp, opt, mesh=mesh)
+    # the anchor and teacher trees: this rank's slices, placed as the state's
+    terms = {k: shard_for_training(cfg, *_trees(case, "cpu", k), mesh)
+             if k in ("anchor", "distill") else case[k]
+             for k in ("anchor", "anchor_weight", "distill",
+                       "distill_weight") if k in case}
     step = make_train_step(cfg, opt, mesh=mesh, remat=case.get("remat", True),
                            microbatches=case.get("microbatches", 0),
-                           sequence_parallel=case.get("sp", False))
+                           sequence_parallel=case.get("sp", False), **terms)
     out = {"metrics": [], "trees": []}
     for batch in case["batches"]:
         state, m = step(state, batch)
