@@ -24,13 +24,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operations over 989 TFLOP/s, whichever is larger); then one
    ``frame_sum`` line: each kernel's time, bound and library time summed
    over a talker frame at M=1 (28 layers x 7 linears, plus the head);
-   then each kernel's float32 instance the same way at M=1 6144x2048 and
-   at the tiny shape, with max|kernel - plain| <= 1e-5 * max|plain| and
-   its bound at the float32 CUDA-core rate (67 TFLOP/s);
+   then each kernel's float32 instance the same way (f32_cases: every
+   flagship (N, K) at the rows its ring covers, B at a tp = 2 shard at 512
+   rows, the tiny shape, one shape of the simple kernels), with
+   max|kernel - plain| <= 1e-5 * max|plain|, repeats bit-identical, its
+   bound at the float32 CUDA-core rate (67 TFLOP/s); timed only at
+   6144x2048 (A at 1/8/32/64 rows, B at 1/32/128) and at the 512-row
+   shard, the plain version and the library at M=1 and at B's 128 and
+   512 rows;
 3. a tiny model on the card (kernels) against the same model on the CPU
    (plain versions), under both int8 layouts: in bf16, prefill logits
    within tolerance and the greedy codes' agreement printed; in float32,
-   the greedy codes must equal the CPU's frame for frame; step
+   the greedy codes must equal the CPU's frame for frame (the float32
+   instances' launches over the whole phase are counted from 0); step
    ``assembly``: tiny float32 cb0 and residual_sum models on the card,
    the AssemblyPlan's embedding (and trailing buffer) bit-equal to the
    eager chain's for each speaker kind, a batched assembly of three
@@ -274,7 +280,15 @@ FLAGSHIP_NK = (
 )
 GS = 64
 TINY = (67, 64, 16)  # (N, K, gs)
+SIMPLE = (33, 36, 12)  # (N, K, gs) that only the simple kernels take
 REPRESENTATIVE = (1, 6144, 2048)  # (M, N, K) reported in the kernels line
+F32_TP_SHARD = (512, 3072, 2048)  # (M, N, K): a tp = 2 gate/up shard, 512 rows
+# the float32 cases that are timed (the rest are checked only): each
+# instance at 6144 x 2048 and the tp shard; plain and library times at M=1
+# and at kernel B's operation-bound rows
+F32_TIMED_ROWS = {"grouped_qmv": (1, 8, 32, 64),
+                  "dequant_matmul": (1, 32, 128, 512)}
+F32_YARDSTICK_ROWS = {"grouped_qmv": (1,), "dequant_matmul": (1, 128, 512)}
 # one talker frame at M=1: (N, K) -> calls (28 layers of q, k, v, o, gate,
 # up, down, then the codec head)
 TALKER_FRAME = {(2048, 2048): 56, (1024, 2048): 56, (6144, 2048): 56,
@@ -329,11 +343,13 @@ def device_time_ms(torch, fn, arg_sets, batches: int = 5, per_batch: int = 10):
 def bound_ms(m: int, n: int, k: int, gs: int,
              f32: bool = False) -> tuple[float, str]:
     """x and out in bf16 (or f32), int8 codes, f32 scales and biases read
-    once; products at the dense bf16 rate (or the float32 one)."""
+    once; operations at the dense bf16 rate (or the float32 one): the
+    products, and the scale and bias applied the cheaper way, to each
+    weight once (2nk) or to each row's group sums (2mgn)."""
     g = k // gs
     act = 4 if f32 else 2
     nbytes = m * k * act + n * k + 2 * g * n * 4 + m * n * act
-    ops = 2 * m * n * k + 2 * m * g * n
+    ops = 2 * m * n * k + 2 * n * min(k, m * g)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / (PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -392,11 +408,24 @@ def planned_cases() -> list[tuple]:
 
 
 def f32_cases() -> list[tuple]:
-    """(kernel, M, N, K, gs) of each kernel's float32 instance: a talker
-    gate/up projection at M=1 and the tiny ragged shape."""
-    n, k, gs = TINY
-    return [(name, m, nn, kk, g) for name in ("grouped_qmv", "dequant_matmul")
-            for m, nn, kk, g in ((*REPRESENTATIVE, GS), (3, n, k, gs))]
+    """(kernel, M, N, K, gs) of each kernel's float32 instance: every
+    flagship (N, K) at the rows of its ring's instances (A at 1, 8, 24 (8-row
+    bands x 3), 32 and 64 rows; B at 1, 16, 32 and the 128-row prefill
+    bucket), B at a tp = 2 shard at 512 rows, the tiny ragged shape (the
+    rings at N = 67) and one that only the simple kernels take."""
+    rows = {"grouped_qmv": (1, 8, 24, 32, 64),
+            "dequant_matmul": (1, 16, 32, 128)}
+    cases = [(name, m, nn, kk, GS) for nn, kk in FLAGSHIP_NK
+             for name, ms in rows.items() for m in ms]
+    cases.append(("dequant_matmul", *F32_TP_SHARD, GS))
+    return cases + [(name, m, *shape) for name in rows
+                    for m, shape in ((3, TINY), (5, SIMPLE))]
+
+
+def f32_timed(case: tuple) -> bool:
+    name, m, n, k, _ = case
+    return m in F32_TIMED_ROWS[name] and (
+        (n, k) == REPRESENTATIVE[1:] or (m, n, k) == F32_TP_SHARD)
 
 
 def phase_kernels(torch, cases, checked: dict, source: str,
@@ -407,10 +436,11 @@ def phase_kernels(torch, cases, checked: dict, source: str,
     ``f32``: float32 x and out (the kernels' float32 instances);
     ``timed=False``: the check alone (one weight copy, no times). The
     plain version and the library are timed only where the kernels line
-    and frame_sum read them, a talker frame's shapes at M=1 (for the 400 s
-    budget: ~14 s on the card)."""
+    and frame_sum read them, a talker frame's shapes at M=1 (float32:
+    F32_YARDSTICK_ROWS), for the script's budget."""
     from qwen3_tts_tpu_torch.ops.dequant_matmul import (
-        dequant_matmul_cuda, dense_matmul, plan_kernel_b, quantized_matmul_ref,
+        dequant_matmul_cuda, dense_matmul, plan_kernel_b, plan_kernel_b_f32,
+        quantized_matmul_ref,
     )
     from qwen3_tts_tpu_torch.ops.grouped_qmv import (
         _dense_route, grouped_qmv_cuda, pack_grouped, plan_kernel_a,
@@ -463,23 +493,23 @@ def phase_kernels(torch, cases, checked: dict, source: str,
         if not torch.equal(got, again):
             fail(f"{name} {dtype} M={m} N={n} K={k} gs={gs}: two launches on "
                  "the same inputs differ")
-        if name == "dequant_matmul" and f32:
-            extra = {"path": "f32"}  # the CUDA-core instance takes no plan
-        elif name == "dequant_matmul":
-            plan = plan_kernel_b(m, n, k, gs, sm_count)
+        if name == "dequant_matmul":
+            plan = (plan_kernel_b_f32 if f32 else plan_kernel_b)(
+                m, n, k, gs, sm_count)
             extra = {"ring": plan.ring, "m_frags": plan.m_frags,
                      "rows": plan.tile_m}
         else:
-            plan = plan_kernel_a(m, n, k, gs, sm_count, bf16=not f32)
+            plan = plan_kernel_a(m, n, k, gs, sm_count)
             extra = {"ring": plan.ring, "ragged": plan.ragged,
                      "rows": plan.rows}
-        if "path" not in extra:
-            extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
+        extra.update(k_splits=plan.k_splits, blocks=plan.blocks)
         t_bound, bound_by = bound_ms(m, n, k, gs, f32)
         times = {"kernel_ms": None, "plain_ms": None, "library_ms": None}
         if timed:
             times["kernel_ms"] = device_time_ms(torch, kern, sets)
-        if timed and m == 1 and (n, k) in TALKER_FRAME:
+        yardstick = (m in F32_YARDSTICK_ROWS[name] if f32
+                     else m == 1 and (n, k) in TALKER_FRAME)
+        if timed and yardstick:
             times["plain_ms"] = device_time_ms(torch, plain, sets)
             times["library_ms"] = device_time_ms(torch, lib, sets)
         row = {"phase": "kernels", "shapes_from": source, "kernel": name,
@@ -534,7 +564,10 @@ def main() -> None:
     phase_kernels(torch, planned_cases(), checked, "plan")
     phase_frame_sum(checked)
     checked_f32: dict = {}
-    phase_kernels(torch, f32_cases(), checked_f32, "f32", f32=True)
+    for timed in (True, False):
+        phase_kernels(torch, [c for c in f32_cases() if f32_timed(c) == timed],
+                      checked_f32, "f32", f32=True, timed=timed)
+    ref_f32 = phase_reference(torch)
     launches, shapes, runs = phase_main_paths(torch, snapshot)
     app_counts, app_ran = phase_app(torch)
     mtp_counts, mtp_ran = phase_mtp(torch, runs["flagship_feedback_code2wav"])
@@ -545,7 +578,7 @@ def main() -> None:
     del asr
     asr_snapshot.cleanup()
     phase_train(torch)
-    par_counts, par_ran = phase_parallel(torch, checked)
+    par_counts, par_ran, par_f32 = phase_parallel(torch, checked, checked_f32)
     train_par_counts = phase_train_parallel(torch)
     for run_shapes in (app_ran, mtp_ran, ran, server_ran, par_ran):
         for name, run in run_shapes.items():
@@ -553,6 +586,11 @@ def main() -> None:
     launches = {name: launches[name] + app_counts[name] + mtp_counts[name]
                 + counts[name] + server_counts[name] + par_counts[name]
                 + train_par_counts[name] for name in launches}
+    # the float32 instances: the reference phase's and phase parallel's
+    # float32 steps, each counted from 0
+    f32_launches = {name: ref_f32[name] + par_f32[name] for name in launches}
+    log({"phase": "f32_launches", "reference": ref_f32, "parallel": par_f32,
+         "total": f32_launches})
     # every shape the main paths and serving ran is held against its plain
     # version: a shape the plan missed is checked now
     missing = sorted({(name, *shape) for name, run in shapes.items()
@@ -583,9 +621,10 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": f"M={r['M']},N={r['N']},K={r['K']},gs={r['gs']}",
-            "f32": {key: r32[key] for key in (
+            "f32": {**{key: r32[key] for key in (
                 "kernel_ms", "max_abs_err", "plain_ms", "bound_ms",
-                "library_ms")},
+                "library_ms", "bound_share")},
+                "launches": f32_launches[name]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
@@ -605,14 +644,16 @@ TEXT = ("The quick brown fox jumps over the lazy dog. "
         "A short sentence to synthesize on the card.")
 
 
-def phase_reference(torch) -> None:
+def phase_reference(torch) -> dict:
     """A tiny model (numpy-seeded weights) on the card, whose int8 linears
     run on the kernels, against the same weights on the CPU, whose linears
     run on the plain versions, under both int8 layouts. In bf16: prefill
     logits within 5e-2 of their range, the greedy codes' agreement
     printed. In float32 (the kernels' float32 instances): prefill logits
     within 1e-3 of their range, and the greedy codes must equal the CPU's
-    frame for frame."""
+    frame for frame. Then steps assembly, import, kv_int8 and clone.
+    Returns each kernel's float32 launches over the phase (counted from
+    0), which must not be 0."""
     import dataclasses
 
     from qwen3_tts_tpu_torch.engine import configs
@@ -624,6 +665,7 @@ def phase_reference(torch) -> None:
     from qwen3_tts_tpu_torch.runtime.sampling import SamplingConfig
 
     greedy = SamplingConfig(greedy=True)
+    cuda_kernels.reset_launch_counts()
     for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
         cfg = dataclasses.replace(configs.tiny(quant=True), dtype=dtype)
         host = Qwen3TTSModel.synthetic(cfg, seed=0, device="cpu")
@@ -649,12 +691,13 @@ def phase_reference(torch) -> None:
             if not math.isfinite(err) or err > tol * ref:
                 fail(f"tiny prefill logits, {dtype}, {layout}: card vs CPU "
                      f"max err {err} > {tol} * {ref}")
-            before = kernel.launches
+            before = kernel.by_dtype[dtype]
             codes = {dev: gen.synthesize(prompt, max_frames=16,
                                          collect_codes=True).codes
                      for dev, gen in gens.items()}
-            if kernel.launches == before:
-                fail(f"tiny {dtype}, {layout}: {kernel.name} never launched")
+            if kernel.by_dtype[dtype] == before:
+                fail(f"tiny {dtype}, {layout}: {kernel.name}'s {dtype} "
+                     "instance never launched")
             same = codes["cuda"].shape == codes["cpu"].shape
             lead = 0
             if same:
@@ -674,6 +717,10 @@ def phase_reference(torch) -> None:
     phase_reference_import(torch)
     phase_reference_kv_int8(torch)
     phase_reference_clone(torch)
+    counts = {k.name: k.by_dtype["float32"] for k in cuda_kernels.KERNELS}
+    if not all(counts.values()):
+        fail(f"reference: a float32 instance never launched: {counts}")
+    return counts
 
 
 def phase_reference_assembly(torch) -> None:
@@ -1699,11 +1746,10 @@ def phase_app(torch) -> tuple[dict, dict]:
 
 
 def phase_main_paths(torch, snapshot) -> tuple[dict, dict, dict]:
-    """The reference phase, then every main path and the imported
-    checkpoint's; returns each kernel's launches on the flagship's main
-    path under its layout (the first path that runs it), the shapes each
-    kernel ran on any path, and each path's numbers (phase_main_path)."""
-    phase_reference(torch)
+    """Every main path and the imported checkpoint's; returns each
+    kernel's launches on the flagship's main path under its layout (the
+    first path that runs it), the shapes each kernel ran on any path, and
+    each path's numbers (phase_main_path)."""
     launches: dict = {}
     shapes: dict = {}
     runs: dict = {}
@@ -3152,6 +3198,7 @@ def parallel_rank(device, tiny_prompts) -> dict:
     out = {"rank": mesh.rank, "device": str(device)}
 
     t_step = time.perf_counter()
+    cuda_kernels.reset_launch_counts()  # the float32 steps' launches from 0
     model = Qwen3TTSModel.synthetic(_parallel_feedback_tiny(), seed=0,
                                     device="cpu").to(device)
     model.sampling = SamplingConfig(greedy=True)
@@ -3176,6 +3223,9 @@ def parallel_rank(device, tiny_prompts) -> dict:
     del model
     torch.cuda.empty_cache()
     out["flagship_f32"]["step_s"] = time.perf_counter() - t_step
+    out["f32_launches"] = {k.name: k.by_dtype["float32"]
+                           for k in cuda_kernels.KERNELS}
+    out["f32_shapes"] = {k.name: sorted(k.shapes) for k in cuda_kernels.KERNELS}
 
     t_step = time.perf_counter()
     model = Qwen3TTSModel.synthetic(configs.flagship_feedback_code2wav(),
@@ -3219,7 +3269,8 @@ def _same_codes(a, b) -> bool:
     return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
+def phase_parallel(torch, checked: dict,
+                   checked_f32: dict) -> tuple[dict, dict, dict]:
     """Tensor-parallel decode (parallel/) at tp = 2 on one card: two ranks
     on cuda:0 over gloo (parallel.comm.launch; the kernels were built by
     phase 1, before the ranks start). Steps: ``tiny_f32`` (the tiny
@@ -3235,8 +3286,9 @@ def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
     their host seconds and the card waits before them, peak memory, RTF
     per rank). Every kernel B shape
     the kernel phase's plan missed is held against its plain version
-    before the step's lines. Returns the bf16 step's launches (both ranks)
-    and shapes."""
+    before the step's lines (the float32 steps' at float32). Returns the
+    bf16 step's launches (both ranks) and shapes, and the float32 steps'
+    launches of each kernel's float32 instance (both ranks)."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import configs, prepare_segments
@@ -3273,6 +3325,16 @@ def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
         if not ok:
             fail(f"parallel tiny_f32 rank {rk['rank']}: greedy codes at tp="
                  f"{PARALLEL_TP} differ from the one-rank CPU run")
+
+    f32_shapes = {(name, *shape) for rk in ranks
+                  for name, run in rk["f32_shapes"].items() for shape in run}
+    phase_kernels(torch, sorted(f32_shapes - checked_f32.keys()), checked_f32,
+                  "parallel", f32=True, timed=False)
+    f32_counts = {name: sum(rk["f32_launches"][name] for rk in ranks)
+                  for name in ranks[0]["f32_launches"]}
+    if not f32_counts["dequant_matmul"]:
+        fail(f"parallel float32 steps: kernel B's float32 instance never "
+             f"launched ({f32_counts})")
 
     whole = ranks[0]["flagship_f32"]["whole"]
     scale = float(np.abs(whole).max())
@@ -3342,7 +3404,7 @@ def phase_parallel(torch, checked: dict) -> tuple[dict, dict]:
         fail("parallel flagship_bf16: the ranks' codes differ")
     counts = {name: sum(run["launches"][name] for run in runs)
               for name in runs[0]["launches"]}
-    return counts, shapes
+    return counts, shapes, f32_counts
 
 # --------------------------------------------------------------------------
 # phase train_parallel: parallel training over torch.distributed

@@ -65,10 +65,35 @@
 // in M, N and K are masked there. The host picks the path by shape.
 //
 // The float32 instance (entry dequant_matmul_f32, for float32 models: the
-// reference keeps the dequantized weight in x.dtype) cannot use the bf16
-// tensor-core fragments, and takes no TF32: a small CUDA-core kernel stages
-// x and the f32 weight in shared memory and sums f32 FMAs in k order. Its
-// speed is not tuned.
+// reference keeps the dequantized weight in x.dtype, so the product is
+// f32 x f32) cannot use the bf16 tensor-core fragments and takes no TF32
+// (it keeps about three digits; the float32 checks hold 1e-5 of the
+// output's range). At M = 1 it is bound by the same bytes (x and out cost
+// 4 bytes an element); above about 11 rows by the 67 TFLOP/s of f32 FMAs
+// on the CUDA cores. Its ring path takes the bf16 ring's shapes:
+// - Split-K, the workspace, the ticket and the last block's reduction in
+//   split order as above, from its own host plan (plan_kernel_b with f32).
+// - The same cp.async ring: 16-byte copies of each slice's [64 x 64] codes
+//   (rows padded to 80 bytes, so a quarter-warp's 16-byte loads of 8 rows
+//   hit 8 different bank groups) and of the block's f32 x rows (256 bytes),
+//   the split's scale/bias table once.
+// - Weights in registers, once per block. A lane owns 2 weight rows (4 in
+//   the 32-row instance), and the 128 threads are 4 (8) parts of each
+//   slice's 64 k. Each 4 k it dequantizes its weights exactly as the plain
+//   version does, __fadd_rn(__fmul_rn(code, s), b) with no contraction, and
+//   FMAs them into acc[TM][2 or 4] for EVERY row of M the block covers (TM
+//   = 1..64), with x broadcast from shared memory (one 16-byte load feeds
+//   8 or 16 FMAs). So at M <= 64 the weight crosses device memory and is
+//   formed once per block; above, grid.y walks 32-row tiles (at 512 rows
+//   12% faster than 2 rows a lane on the same tiles). There the ring runs at
+//   ~3/4 of cuBLAS's full-f32 rate on a dense weight of the same shape,
+//   which itself reaches ~60-65% of the 67 TFLOP/s (PERF.md).
+// - The parts are summed in part order through shared memory, then the
+//   splits in split order: repeats are bit-identical.
+// - Programmatic dependent launch as above.
+// Every other shape takes the simple f32 kernel: one block owns a TM x 64
+// tile (TM = 4 at M <= 4, else 16), stages x and the f32 weight in shared
+// memory and sums f32 FMAs in k order over all of K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -566,7 +591,7 @@ cudaError_t launch_simple(const __nv_bfloat16* x, const uint8_t* q, const float*
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- f32 path
+// ---------------------------------------------------------- f32 simple path
 
 constexpr int kF32TK = 64;                       // K of one staged tile
 constexpr int kF32Threads = 256;
@@ -657,6 +682,313 @@ cudaError_t launch_f32(const float* x, const uint8_t* q, const float* s, const f
   return cudaGetLastError();
 }
 
+
+// -------------------------------------------------------------- f32 ring path
+
+constexpr int kF32RingThreads = 128;     // 4 warps
+constexpr int kF32QRow = kTK + 16;       // bytes a staged code row (80)
+constexpr int kF32XRow = kTK * 4;        // bytes a staged x row (256)
+
+// One instance: TM rows of M a block (1, 2, 4, 8, 16, 32 or 64). A lane
+// owns kRN weight rows (2; 4 in the 32-row instance, which the plan also
+// gives every row tile above 64 rows: twice the FMAs per x load), so the
+// 128 threads are kKP parts of each slice's 64 k, kKPart k each.
+template <int TM>
+struct RingF32 {
+  static constexpr int kRN = TM == 32 ? 4 : 2;
+  static constexpr int kLanes = kTN / kRN;                // threads of a part: 32 or 16
+  static constexpr int kKP = kF32RingThreads / kLanes;   // 4 or 8
+  static constexpr int kKPart = kTK / kKP;               // 16 or 8
+  static constexpr int kSteps = kKPart / 4;              // 4-k steps of a part
+  static constexpr int kStages = TM <= 8 ? 8 : TM == 32 ? 5 : 4;
+  static constexpr int kStageBytes = kTN * kF32QRow + TM * kF32XRow;
+  static constexpr int kSmem = kStages * kStageBytes;  // then the scale/bias table
+  static constexpr int kTile = TM * kTN;               // floats of a partial tile
+  // blocks an SM holds (ops/dequant_matmul.py::f32_blocks_per_sm counts on it)
+  static constexpr int kMinBlocks = TM <= 16 ? 3 : 2;
+  // the last block's reduction: float4 a thread per batch (a tile has
+  // 16 * TM), splits loaded per batch (16 float4 in flight)
+  static constexpr int kRedU = TM >= 16 ? TM / 8 : 1;
+  static constexpr int kRedA = 16 / kRedU;
+  static_assert(kKP * kTile * 4 <= kSmem, "the parts' sums reuse the ring");
+};
+
+// One code (byte c of word) as its exact f32 value: 2^23 + code - 2^23.
+__device__ __forceinline__ float code_f32(uint32_t word, int c) {
+  return __uint_as_float(__byte_perm(word, 0x4b000000u, 0x7540 | c)) - 8388608.f;
+}
+
+// A lane's codes of one weight row in a slice: its part's kKPart bytes as
+// kKPart / 4 words, one 16- or 8-byte shared load.
+template <int KPART>
+struct Codes {
+  uint32_t w[KPART / 4];
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    if constexpr (KPART == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
+  }
+};
+
+template <int TM>
+__global__ void __launch_bounds__(kF32RingThreads, RingF32<TM>::kMinBlocks) ring_f32_kernel(
+    const float* __restrict__ x, const uint8_t* __restrict__ q,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+    int M, int K, int N, int gs, int k_unit, int sb_groups) {
+  using R = RingF32<TM>;
+  constexpr int RN = R::kRN;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int ticket;
+
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  const int tid = threadIdx.x;
+  const int part = tid / R::kLanes;  // k kKPart*part .. + kKPart of each slice
+  const int ln = tid % R::kLanes;    // weight rows ln + kLanes * r, r < RN
+  const int n0 = blockIdx.x * kTN;
+  const int m0 = blockIdx.y * TM;
+  const int rows = min(TM, M - m0);
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int units = K / k_unit;
+  const int kb = static_cast<int>(static_cast<long long>(split) * units / splits) * k_unit;
+  const int ke = static_cast<int>(static_cast<long long>(split + 1) * units / splits) * k_unit;
+  const int slices = (ke - kb) / kTK;
+  const int G = K / gs;
+  const int g0 = kb / gs;
+  const int sbs = sb_stride(sb_groups);
+  float* sbt = reinterpret_cast<float*>(smem + R::kSmem);
+
+  // Copies a thread starts for each slice, as offsets from the split's
+  // first: codes of rows cr and cr + 32 at byte cc, and x rows xr + 8j
+  // (j < xn) at column xc. Rows of x past M and weight rows past N are not
+  // loaded: their garbage reaches only output entries that are never stored.
+  const int cr = tid >> 2;
+  const int cc = (tid & 3) * 16;
+  const uint8_t* qsrc = q + (size_t)(n0 + cr) * K + kb + cc;
+  const bool q0 = n0 + cr < N;
+  const bool q1 = n0 + cr + 32 < N;
+  const int xr = tid >> 4;
+  const int xc = (tid & 15) * 4;
+  const int xn = xr < rows ? (rows - xr + 7) / 8 : 0;
+  const float* xsrc = x + (size_t)(m0 + xr) * K + kb + xc;
+  auto load = [&](int stage, int s) {
+    uint8_t* base = smem + stage * R::kStageBytes;
+    const int k = s * kTK;
+    if (q0) cp_async16(base + cr * kF32QRow + cc, qsrc + k);
+    if (q1) cp_async16(base + (cr + 32) * kF32QRow + cc, qsrc + (size_t)32 * K + k);
+    uint8_t* xs = base + kTN * kF32QRow + xr * kF32XRow + xc * 4;
+    for (int j = 0; j < xn; ++j)
+      cp_async16(xs + j * 8 * kF32XRow, xsrc + (size_t)j * 8 * K + k);
+  };
+
+  float acc[TM][RN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int r = 0; r < RN; ++r) acc[m][r] = 0.f;
+
+  // The first group of copies: slice 0 and the split's scale/bias table (as
+  // the bf16 ring); then a group for each of slices 1 .. kStages - 2.
+  if (slices > 0) load(0, 0);
+  const int gspan = (ke - kb) / gs;
+  const int lg = 32 - __clz(gspan - 1);  // gspan <= 2^lg <= kF32RingThreads
+  const int col = tid & ((1 << lg) - 1);
+  for (int row = tid >> lg; row < 2 * kTN; row += kF32RingThreads >> lg) {
+    const int n = n0 + (row & (kTN - 1));  // scale rows, then bias rows
+    if (col < gspan && n < N)
+      cp_async4(sbt + row * sbs + col, (row < kTN ? scale : bias) + (size_t)n * G + g0 + col);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < R::kStages - 1; ++s) {
+    if (s < slices) load(s, s);
+    cp_async_commit();
+  }
+
+  // this thread's group, relative to g0, and its k offset inside it (a
+  // part lies in one group: gs is a multiple of 16)
+  int grp = R::kKPart * part / gs;
+  int rem = R::kKPart * part - grp * gs;
+  for (int i = 0; i < slices; ++i) {
+    cp_async_wait<R::kStages - 2>();  // slice i has landed ...
+    __syncthreads();  // ... for every thread, and slice i - 1's stage is free
+    const int next = i + R::kStages - 1;
+    if (next < slices) load(next % R::kStages, next);
+    cp_async_commit();
+
+    const uint8_t* base = smem + (i % R::kStages) * R::kStageBytes;
+    Codes<R::kKPart> codes[RN];
+    float sc[RN], bi[RN];
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      const int row = ln + R::kLanes * r;
+      codes[r].load(base + row * kF32QRow + part * R::kKPart);
+      sc[r] = sbt[row * sbs + grp];
+      bi[r] = sbt[(kTN + row) * sbs + grp];
+    }
+    rem += kTK;
+    while (rem >= gs) {
+      rem -= gs;
+      ++grp;
+    }
+    const float* xs =
+        reinterpret_cast<const float*>(base + kTN * kF32QRow) + part * R::kKPart;
+#pragma unroll
+    for (int st = 0; st < R::kSteps; ++st) {  // k = kKPart * part + 4 st + j
+      float w[RN][4];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) {
+        const uint32_t word = codes[r].w[st];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[r][j] = __fadd_rn(__fmul_rn(code_f32(word, j), sc[r]), bi[r]);
+      }
+#pragma unroll
+      for (int m = 0; m < TM; ++m) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + m * kTK + 4 * st);
+        const float xf[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < RN; ++r) acc[m][r] = fmaf(xf[j], w[r][j], acc[m][r]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // the parts' sums through shared memory [kKP][TM][kTN], added in part
+  // order by all threads, 4 outputs a float4
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+    if (m < rows)
+#pragma unroll
+      for (int r = 0; r < RN; ++r) red[(part * TM + m) * kTN + ln + R::kLanes * r] = acc[m][r];
+  __syncthreads();
+  const int tiles = gridDim.x * gridDim.y;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const float4* red4 = reinterpret_cast<const float4*>(red);
+  const int n4 = rows * (kTN / 4);
+  float4* part4 = reinterpret_cast<float4*>(ws) + ((size_t)split * tiles + tile) * (R::kTile / 4);
+  for (int i = tid; i < n4; i += kF32RingThreads) {
+    float4 sum = red4[i];
+#pragma unroll
+    for (int p = 1; p < R::kKP; ++p) add4(sum, red4[p * (R::kTile / 4) + i]);
+    if (splits > 1) {
+      part4[i] = sum;  // the partial tile [TM][kTN] at ws[split][tile]
+    } else {
+      float* row = out + (size_t)(m0 + i / (kTN / 4)) * N;
+      const int n = n0 + (i % (kTN / 4)) * 4;
+      if (n < N) row[n] = sum.x;
+      if (n + 1 < N) row[n + 1] = sum.y;
+      if (n + 2 < N) row[n + 2] = sum.z;
+      if (n + 3 < N) row[n + 3] = sum.w;
+    }
+  }
+  if (splits == 1) return;
+  // the block's stores, then one thread's fence and ticket (as the bf16 ring)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    ticket = atomicAdd(counters + tile, 1);
+    __threadfence();
+  }
+  __syncthreads();
+  if (ticket != splits - 1) return;
+  // the last block: the tile's sums over the splits in order 0..S-1, kRedU
+  // float4 a thread at a time, the partials of kRedA splits loaded first
+  constexpr int U = R::kRedU;
+  constexpr int A = R::kRedA;
+  const float4* w4 = reinterpret_cast<const float4*>(ws) + (size_t)tile * (R::kTile / 4);
+  const size_t step4 = (size_t)tiles * (R::kTile / 4);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = tid; i0 < n4; i0 += U * kF32RingThreads) {
+    float4 sum[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) sum[u] = zero4;
+    int s = 0;
+    for (; s + A <= splits; s += A) {
+      float4 v[A][U];
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * kF32RingThreads;
+          v[a][u] = i < n4 ? __ldcg(w4 + (s + a) * step4 + i) : zero4;
+        }
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int u = 0; u < U; ++u) add4(sum[u], v[a][u]);
+    }
+    for (; s < splits; ++s) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * kF32RingThreads;
+        if (i < n4) add4(sum[u], __ldcg(w4 + s * step4 + i));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kF32RingThreads;
+      if (i < n4) {
+        float* row = out + (size_t)(m0 + i / (kTN / 4)) * N;
+        const int n = n0 + (i % (kTN / 4)) * 4;
+        if (n < N) row[n] = sum[u].x;
+        if (n + 1 < N) row[n + 1] = sum[u].y;
+        if (n + 2 < N) row[n + 2] = sum[u].z;
+        if (n + 3 < N) row[n + 3] = sum[u].w;
+      }
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int TM>
+cudaError_t launch_ring_f32(const float* x, const uint8_t* q, const float* s,
+                            const float* b, float* out, float* ws, int* counters, int M,
+                            int K, int N, int gs, int k_splits, int k_unit, int sb_groups,
+                            cudaStream_t stream) {
+  using R = RingF32<TM>;
+  static bool smem_set[kMaxDevices] = {};  // the attribute, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(ring_f32_kernel<TM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               R::kSmem + sb_bytes(kSbGroupsMax));
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTN - 1) / kTN, (M + TM - 1) / TM, k_splits);
+  cfg.blockDim = dim3(kF32RingThreads);
+  cfg.dynamicSmemBytes = R::kSmem + sb_bytes(sb_groups);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ring_f32_kernel<TM>, x, q, s, b, out, ws, counters, M, K,
+                           N, gs, k_unit, sb_groups);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of kernel B as planned by ops/dequant_matmul.py::plan_kernel_b:
@@ -698,12 +1030,16 @@ extern "C" int dequant_matmul_bf16(const void* x, const void* q,
 }
 
 // Kernel B at float32 x and out (the f32 instance), with the bf16 entry's
-// arguments; the plan's ints, the workspace and the counters are unused:
-// 4 rows of M a block at M <= 4, else 16.
+// arguments, as plan_kernel_b plans it with f32: rows = 0 takes the simple
+// f32 kernel (the workspace and counters unused); rows in {1, 2, 4, 8, 16,
+// 32, 64} the f32 ring, rows of M a block, with k_splits splits of K in
+// units of k_unit, each holding at most sb_groups groups (ws: k_splits *
+// tiles * rows * 64 floats and one zeroed counter per (N, M) tile when
+// k_splits > 1).
 extern "C" int dequant_matmul_f32(const void* x, const void* q,
                                   const void* scale, const void* bias,
                                   void* out, void* ws, void* counters, int M,
-                                  int K, int N, int gs, int m_frags,
+                                  int K, int N, int gs, int rows,
                                   int k_splits, int k_unit, int sb_groups,
                                   void* stream) {
   auto* xp = static_cast<const float*>(x);
@@ -711,7 +1047,29 @@ extern "C" int dequant_matmul_f32(const void* x, const void* q,
   auto* sp = static_cast<const float*>(scale);
   auto* bp = static_cast<const float*>(bias);
   auto* op = static_cast<float*>(out);
+  auto* wp = static_cast<float*>(ws);
+  auto* cp = static_cast<int*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(M <= 4 ? launch_f32<4>(xp, qp, sp, bp, op, M, K, N, gs, st)
-                                 : launch_f32<16>(xp, qp, sp, bp, op, M, K, N, gs, st));
+  if (rows == 0)
+    return static_cast<int>(M <= 4 ? launch_f32<4>(xp, qp, sp, bp, op, M, K, N, gs, st)
+                                   : launch_f32<16>(xp, qp, sp, bp, op, M, K, N, gs, st));
+  // what the ring path takes (the plan sends nothing else)
+  if (K % kTK || gs % 16 || k_unit <= 0 || k_unit % kTK || k_unit % gs || K % k_unit ||
+      k_splits < 1 || k_splits > K / k_unit || sb_groups < 1 || sb_groups > kSbGroupsMax ||
+      (K / k_unit + k_splits - 1) / k_splits * (k_unit / gs) > sb_groups ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define RING_CASE(TM)                                                                  \
+  if (rows == TM)                                                                      \
+    return static_cast<int>(launch_ring_f32<TM>(xp, qp, sp, bp, op, wp, cp, M, K, N, gs, \
+                                                k_splits, k_unit, sb_groups, st));
+  RING_CASE(1)
+  RING_CASE(2)
+  RING_CASE(4)
+  RING_CASE(8)
+  RING_CASE(16)
+  RING_CASE(32)
+  RING_CASE(64)
+#undef RING_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

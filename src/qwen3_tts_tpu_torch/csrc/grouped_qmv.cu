@@ -61,9 +61,11 @@
 // in a fixed order.
 //
 // The float32 instance (entry qmv_grouped_f32, for float32 models: the
-// reference computes in x.dtype) is the simple path with f32 x and out:
-// the same f32 products and sums, no rounding at the end. Every f32 shape
-// takes it; its speed is not tuned.
+// reference computes in x.dtype) is the same two paths with f32 x and out:
+// the same f32 products and sums, no rounding at the end. The ring's x
+// rows are 256 bytes (kXRow = 64 * sizeof(T)), so a 64-row stage holds
+// 16 KB of x beside 8-9 KB of codes, and xsum is summed from f32 x. The
+// host plan sends the same shapes to the ring at either type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,13 +79,14 @@ namespace {
 
 constexpr int kTN = 128;         // output columns a block (4 a lane)
 constexpr int kTK = 64;          // K of one ring slice (whole groups)
-constexpr int kXRow = kTK * 2;   // bytes of a staged x row (bf16)
 constexpr int kSbGroupsMax = 64; // groups of one split (the plan keeps to it)
 constexpr int kMaxDevices = 64;
 
-// One instance: BANDS bands of R rows of M (R < 8 only with one band).
-template <int R, int BANDS, bool RAGGED>
+// One instance: activation type T (bf16 or f32), BANDS bands of R rows of
+// M (R < 8 only with one band).
+template <typename T, int R, int BANDS, bool RAGGED>
 struct Ring {
+  static constexpr int kXRow = kTK * static_cast<int>(sizeof(T));  // bytes of a staged x row
   // parts of each slice's 64 k-rows, one warp per (band, part)
   static constexpr int kKP = BANDS <= 2 ? 4 : BANDS <= 4 ? 2 : 1;
   static constexpr int kThreads = 32 * BANDS * kKP;
@@ -95,6 +98,7 @@ struct Ring {
   static constexpr int kQRow = 16 * kChunks;
   static constexpr int kQBytes = kTK * kQRow;
   static constexpr int kStageBytes = kQBytes + kRows * kXRow;
+  static constexpr int kXChunks = kXRow / 16;  // 16-byte copies an x row
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kTile = kRows * kTN;  // floats of a partial tile
   // blocks an SM holds: ptxas keeps the registers to it, the host plan
@@ -119,6 +123,24 @@ __device__ __forceinline__ float widen(unsigned word, int c) {
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
+// Adds the activations of 16 bytes of x to sum, in k order.
+__device__ __forceinline__ void add_x16(const __nv_bfloat16*, float& sum, const uint4& v) {
+  sum += bf16_lo(v.x);
+  sum += bf16_hi(v.x);
+  sum += bf16_lo(v.y);
+  sum += bf16_hi(v.y);
+  sum += bf16_lo(v.z);
+  sum += bf16_hi(v.z);
+  sum += bf16_lo(v.w);
+  sum += bf16_hi(v.w);
+}
+__device__ __forceinline__ void add_x16(const float*, float& sum, const uint4& v) {
+  sum += __uint_as_float(v.x);
+  sum += __uint_as_float(v.y);
+  sum += __uint_as_float(v.z);
+  sum += __uint_as_float(v.w);
+}
+
 // The 4 codes of a lane in a staged code row. RAGGED: the row is the
 // aligned-down window of a row that starts sh = qlow & 15 bytes into it.
 template <bool RAGGED>
@@ -133,8 +155,12 @@ __device__ __forceinline__ unsigned code_word(const uint8_t* row, int lane,
 
 // 8 k-rows into part, 4 at a time: q is the first staged code row, xs the
 // band's first x row at the same k, qlow the low address bits of the first
-// row's start (each next row starts N bytes later).
-template <int R, int QROW, bool RAGGED>
+// row's start (each next row starts N bytes later). Each part[r][e] takes
+// its 8 products in k order at either type; bf16 reads the 4 activations
+// of every row first, f32 (twice the registers a row) reads one
+// activation a row for each k-row, which keeps its 256-thread instances
+// within 128 registers (a float2 of 2 k-rows spilled at 8 rows a band).
+template <typename T, int R, int QROW, int XROW, bool RAGGED>
 __device__ __forceinline__ void step8(float (&part)[R][4], const uint8_t* q,
                                       const uint8_t* xs, int lane,
                                       unsigned qlow, unsigned N) {
@@ -144,42 +170,66 @@ __device__ __forceinline__ void step8(float (&part)[R][4], const uint8_t* q,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       w[j] = code_word<RAGGED>(q + (h + j) * QROW, lane, qlow + (h + j) * N);
-    uint2 xv[R];
+    const uint8_t* xh = xs + h * static_cast<int>(sizeof(T));
+    if constexpr (sizeof(T) == 2) {
+      uint2 xv[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      xv[r] = *reinterpret_cast<const uint2*>(xs + r * kXRow + 2 * h);
+      for (int r = 0; r < R; ++r) xv[r] = *reinterpret_cast<const uint2*>(xh + r * XROW);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float c[4];
+      for (int j = 0; j < 4; ++j) {
+        float c[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) c[e] = widen(w[j], e);
+        for (int e = 0; e < 4; ++e) c[e] = widen(w[j], e);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const unsigned xw = j < 2 ? xv[r].x : xv[r].y;
-        const float xf = (j & 1) ? bf16_hi(xw) : bf16_lo(xw);
+        for (int r = 0; r < R; ++r) {
+          const unsigned xw = j < 2 ? xv[r].x : xv[r].y;
+          const float xf = (j & 1) ? bf16_hi(xw) : bf16_lo(xw);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[r][e] = fmaf(xf, c[e], part[r][e]);
+          for (int e = 0; e < 4; ++e) part[r][e] = fmaf(xf, c[e], part[r][e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float c[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[e] = widen(w[j], e);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float xf = *reinterpret_cast<const float*>(xh + r * XROW + 4 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[r][e] = fmaf(xf, c[e], part[r][e]);
+        }
       }
     }
   }
 }
 
-__device__ __forceinline__ void store4_bf16(__nv_bfloat16* row, int n, int N,
-                                            const float4& v) {
+// 4 outputs of a row at columns n..n+3 (those < N), rounded to bf16 or not.
+__device__ __forceinline__ void store4(__nv_bfloat16* row, int n, int N,
+                                       const float4& v) {
   if (n < N) row[n] = __float2bfloat16_rn(v.x);
   if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v.y);
   if (n + 2 < N) row[n + 2] = __float2bfloat16_rn(v.z);
   if (n + 3 < N) row[n + 3] = __float2bfloat16_rn(v.w);
 }
+__device__ __forceinline__ void store4(float* row, int n, int N, const float4& v) {
+  if (n < N) row[n] = v.x;
+  if (n + 1 < N) row[n + 1] = v.y;
+  if (n + 2 < N) row[n + 2] = v.z;
+  if (n + 3 < N) row[n + 3] = v.w;
+}
 
-template <int R, int BANDS, bool RAGGED>
-__global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
-                                  Ring<R, BANDS, RAGGED>::kMinBlocks) ring_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qg,
+template <typename T, int R, int BANDS, bool RAGGED>
+__global__ void __launch_bounds__(Ring<T, R, BANDS, RAGGED>::kThreads,
+                                  Ring<T, R, BANDS, RAGGED>::kMinBlocks) ring_kernel(
+    const T* __restrict__ x, const uint8_t* __restrict__ qg,
     const float* __restrict__ sg, const float* __restrict__ bg,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+    T* __restrict__ out, float* __restrict__ ws,
     int* __restrict__ counters, int M, int K, int N, int gs, int sb_groups) {
-  using P = Ring<R, BANDS, RAGGED>;
+  using P = Ring<T, R, BANDS, RAGGED>;
+  constexpr int kXRow = P::kXRow;
+  constexpr int kXElems = 16 / static_cast<int>(sizeof(T));  // x elements a 16-byte copy
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int ticket;
 
@@ -223,10 +273,10 @@ __global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
         cp_async16(base + row * P::kQRow + 16 * c, reinterpret_cast<const void*>(src));
     }
     uint8_t* xs = base + P::kQBytes;
-    for (int i = tid; i < rows * (kXRow / 16); i += P::kThreads) {
-      const int m = i >> 3;
-      const int c = i & 7;
-      cp_async16(xs + m * kXRow + 16 * c, x + static_cast<size_t>(m) * K + k0 + 8 * c);
+    for (int i = tid; i < rows * P::kXChunks; i += P::kThreads) {
+      const int m = i / P::kXChunks;
+      const int c = i - m * P::kXChunks;
+      cp_async16(xs + m * kXRow + 16 * c, x + static_cast<size_t>(m) * K + k0 + kXElems * c);
     }
   };
 
@@ -235,31 +285,21 @@ __global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
   // issued, so that it returns ahead of the slices instead of behind them,
   // and summed (k in order: the same sums in every block and run) once the
   // copies are on their way.
-  uint4 xu[kTK / 8];  // gs <= kTK
+  uint4 xu[kTK / kXElems];  // gs <= kTK
   auto xsum_load = [&](int i) {
     const int g = i / rows;
     const int m = i - g * rows;
     const uint4* src = reinterpret_cast<const uint4*>(
         x + static_cast<size_t>(m) * K + kb + g * gs);
 #pragma unroll
-    for (int v = 0; v < kTK / 8; ++v)
-      if (v < gs / 8) xu[v] = src[v];
+    for (int v = 0; v < kTK / kXElems; ++v)
+      if (v < gs / kXElems) xu[v] = src[v];
   };
   auto xsum_store = [&](int i) {
     float sum = 0.f;
 #pragma unroll
-    for (int v = 0; v < kTK / 8; ++v) {
-      if (v < gs / 8) {
-        sum += bf16_lo(xu[v].x);
-        sum += bf16_hi(xu[v].x);
-        sum += bf16_lo(xu[v].y);
-        sum += bf16_hi(xu[v].y);
-        sum += bf16_lo(xu[v].z);
-        sum += bf16_hi(xu[v].z);
-        sum += bf16_lo(xu[v].w);
-        sum += bf16_hi(xu[v].w);
-      }
-    }
+    for (int v = 0; v < kTK / kXElems; ++v)
+      if (v < gs / kXElems) add_x16(x, sum, xu[v]);
     const int g = i / rows;
     xst[g * P::kRows + i - g * rows] = sum;
   };
@@ -329,9 +369,10 @@ __global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
       for (int j0 = u0; j0 < u0 + run; j0 += 8) {
         const unsigned qlow = static_cast<unsigned>(qbase) +
                               static_cast<unsigned>(kb + i * kTK + j0) * static_cast<unsigned>(N);
-        step8<R, P::kQRow, RAGGED>(part, base + j0 * P::kQRow,
-                                   base + P::kQBytes + band * R * kXRow + j0 * 2,
-                                   lane, qlow, static_cast<unsigned>(N));
+        step8<T, R, P::kQRow, kXRow, RAGGED>(
+            part, base + j0 * P::kQRow,
+            base + P::kQBytes + band * R * kXRow + j0 * static_cast<int>(sizeof(T)), lane,
+            qlow, static_cast<unsigned>(N));
       }
       // the group's affine step; xsum * bias once per group, by the warp
       // whose run starts it
@@ -380,8 +421,7 @@ __global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
   };
   if (splits == 1) {
     for (int i = tid; i < n4; i += P::kThreads)
-      store4_bf16(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N,
-                  block_sum(i));
+      store4(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N, block_sum(i));
     return;
   }
   const int tiles = gridDim.x;
@@ -438,25 +478,25 @@ __global__ void __launch_bounds__(Ring<R, BANDS, RAGGED>::kThreads,
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * P::kThreads;
       if (i < n4)
-        store4_bf16(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N, sum[u]);
+        store4(out + static_cast<size_t>(i >> 5) * N, n0 + 4 * (i & 31), N, sum[u]);
     }
   }
   if (tid == 0) counters[tile] = 0;
 }
 
-template <int R, int BANDS, bool RAGGED>
-cudaError_t launch_ring(const __nv_bfloat16* x, const uint8_t* qg, const float* sg,
-                        const float* bg, __nv_bfloat16* out, float* ws,
+template <typename T, int R, int BANDS, bool RAGGED>
+cudaError_t launch_ring(const T* x, const uint8_t* qg, const float* sg,
+                        const float* bg, T* out, float* ws,
                         int* counters, int M, int K, int N, int gs, int k_splits,
                         int sb_groups, cudaStream_t stream) {
-  using P = Ring<R, BANDS, RAGGED>;
+  using P = Ring<T, R, BANDS, RAGGED>;
   static bool smem_set[kMaxDevices] = {};  // the attribute, once per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(ring_kernel<R, BANDS, RAGGED>,
+    err = cudaFuncSetAttribute(ring_kernel<T, R, BANDS, RAGGED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                P::kRing + table_bytes(kSbGroupsMax, P::kRows));
     if (err != cudaSuccess) return err;
@@ -472,22 +512,22 @@ cudaError_t launch_ring(const __nv_bfloat16* x, const uint8_t* qg, const float* 
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ring_kernel<R, BANDS, RAGGED>, x, qg, sg, bg, out,
+  err = cudaLaunchKernelEx(&cfg, ring_kernel<T, R, BANDS, RAGGED>, x, qg, sg, bg, out,
                            ws, counters, M, K, N, gs, sb_groups);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int R, int BANDS>
-cudaError_t launch_ring_any(bool ragged, const __nv_bfloat16* x, const uint8_t* qg,
-                            const float* sg, const float* bg, __nv_bfloat16* out,
+template <typename T, int R, int BANDS>
+cudaError_t launch_ring_any(bool ragged, const T* x, const uint8_t* qg,
+                            const float* sg, const float* bg, T* out,
                             float* ws, int* counters, int M, int K, int N, int gs,
                             int k_splits, int sb_groups, cudaStream_t stream) {
   if (M > R * BANDS) return cudaErrorInvalidValue;
-  return ragged ? launch_ring<R, BANDS, true>(x, qg, sg, bg, out, ws, counters, M, K,
-                                              N, gs, k_splits, sb_groups, stream)
-                : launch_ring<R, BANDS, false>(x, qg, sg, bg, out, ws, counters, M, K,
-                                               N, gs, k_splits, sb_groups, stream);
+  return ragged ? launch_ring<T, R, BANDS, true>(x, qg, sg, bg, out, ws, counters, M,
+                                                 K, N, gs, k_splits, sb_groups, stream)
+                : launch_ring<T, R, BANDS, false>(x, qg, sg, bg, out, ws, counters, M,
+                                                  K, N, gs, k_splits, sb_groups, stream);
 }
 
 // -------------------------------------------------------------- simple path
@@ -675,28 +715,25 @@ cudaError_t launch_simple_any(const void* x, const void* qg, const void* sg,
                 : launch_simple<T, kMaxRows>(xp, qp, sp, bp, op, M, K, N, gs, st);
 }
 
-}  // namespace
-
-// One launch of kernel A as planned by ops/grouped_qmv.py::plan_kernel_a:
-// bands = 0 takes the simple path; (band_rows, bands) in {(1, 1), (2, 1),
-// (4, 1), (8, 1), (8, 2), (8, 3), (8, 4), (8, 8)} the ring path, with
-// k_splits splits of K in whole 64-row slices, each holding at most
-// sb_groups groups (ws: k_splits * ceil(N / 128) * band_rows * bands * 128
-// floats, and counters: one zeroed int per 128-column tile, when
-// k_splits > 1). Returns the CUDA error of the launch (0 = launched).
-extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
-                                const void* bg, void* out, void* ws,
-                                void* counters, int M, int K, int N, int gs,
-                                int band_rows, int bands, int k_splits,
-                                int sb_groups, void* stream) {
+// One launch of kernel A at activation type T as planned by
+// ops/grouped_qmv.py::plan_kernel_a: bands = 0 takes the simple path;
+// (band_rows, bands) in {(1, 1), (2, 1), (4, 1), (8, 1), (8, 2), (8, 3),
+// (8, 4), (8, 8)} the ring path, with k_splits splits of K in whole 64-row
+// slices, each holding at most sb_groups groups (ws: k_splits * ceil(N /
+// 128) * band_rows * bands * 128 floats, and counters: one zeroed int per
+// 128-column tile, when k_splits > 1). Returns the CUDA error of the
+// launch (0 = launched).
+template <typename T>
+int qmv_grouped(const void* x, const void* qg, const void* sg, const void* bg,
+                void* out, void* ws, void* counters, int M, int K, int N, int gs,
+                int band_rows, int bands, int k_splits, int sb_groups, void* stream) {
   if (bands == 0)
-    return static_cast<int>(
-        launch_simple_any<__nv_bfloat16>(x, qg, sg, bg, out, M, K, N, gs, stream));
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
+    return static_cast<int>(launch_simple_any<T>(x, qg, sg, bg, out, M, K, N, gs, stream));
+  auto* xp = static_cast<const T*>(x);
   auto* qp = static_cast<const uint8_t*>(qg);
   auto* sp = static_cast<const float*>(sg);
   auto* bp = static_cast<const float*>(bg);
-  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* op = static_cast<T*>(out);
   auto* wp = static_cast<float*>(ws);
   auto* cp = static_cast<int*>(counters);
   auto st = static_cast<cudaStream_t>(stream);
@@ -709,11 +746,11 @@ extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
       N % 16 != 0 ||
       (reinterpret_cast<uintptr_t>(qg) | reinterpret_cast<uintptr_t>(sg) |
        reinterpret_cast<uintptr_t>(bg)) % 16 != 0;
-#define RING_CASE(R, B)                                                          \
-  if (band_rows == R && bands == B)                                              \
-    return static_cast<int>(launch_ring_any<R, B>(ragged, xp, qp, sp, bp, op, wp, \
-                                                  cp, M, K, N, gs, k_splits,     \
-                                                  sb_groups, st));
+#define RING_CASE(R, B)                                                             \
+  if (band_rows == R && bands == B)                                                 \
+    return static_cast<int>(launch_ring_any<T, R, B>(ragged, xp, qp, sp, bp, op, wp, \
+                                                     cp, M, K, N, gs, k_splits,     \
+                                                     sb_groups, st));
   RING_CASE(1, 1)
   RING_CASE(2, 1)
   RING_CASE(4, 1)
@@ -726,15 +763,25 @@ extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Kernel A at float32 x and out (the f32 instance): the simple path only
-// (bands = 0; its staged x rows hold 1024 elements, so gs <= 1024), with the
-// bf16 entry's arguments. The ring's x stages are sized for 2-byte elements.
+}  // namespace
+
+// Kernel A at bf16 x and out.
+extern "C" int qmv_grouped_bf16(const void* x, const void* qg, const void* sg,
+                                const void* bg, void* out, void* ws,
+                                void* counters, int M, int K, int N, int gs,
+                                int band_rows, int bands, int k_splits,
+                                int sb_groups, void* stream) {
+  return qmv_grouped<__nv_bfloat16>(x, qg, sg, bg, out, ws, counters, M, K, N, gs,
+                                    band_rows, bands, k_splits, sb_groups, stream);
+}
+
+// Kernel A at float32 x and out (the f32 instance), with the bf16 entry's
+// arguments and plan; its simple path stages 1024-element x rows (gs <= 1024).
 extern "C" int qmv_grouped_f32(const void* x, const void* qg, const void* sg,
                                const void* bg, void* out, void* ws,
                                void* counters, int M, int K, int N, int gs,
                                int band_rows, int bands, int k_splits,
                                int sb_groups, void* stream) {
-  if (bands != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      launch_simple_any<float>(x, qg, sg, bg, out, M, K, N, gs, stream));
+  return qmv_grouped<float>(x, qg, sg, bg, out, ws, counters, M, K, N, gs, band_rows,
+                            bands, k_splits, sb_groups, stream);
 }

@@ -18,13 +18,14 @@ both with the signature::
 
 with the split-K workspace, the tile counters and four ints of the host's
 launch plan: kernel A's (band_rows, bands, k_splits, sb_groups) from
-``ops/grouped_qmv.py::plan_kernel_a``, kernel B's (m_frags, k_splits,
-k_unit, sb_groups) from ``ops/dequant_matmul.py::plan_kernel_b`` (see each
-source's entry points; the float32 ones take the simple paths and read no
-plan). Each returns the CUDA error of its launch; :class:`Kernel` raises
-when that is not 0, and counts the launches that succeeded, whichever entry
-ran them, and the (M, N, K, gs) shapes they ran. The nvcc output of a build
-(ptxas' registers and spills) is kept beside its library.
+``ops/grouped_qmv.py::plan_kernel_a``, kernel B's (m_frags, or the float32
+ring's rows, k_splits, k_unit, sb_groups) from
+``ops/dequant_matmul.py::plan_kernel_b`` (see each source's entry points:
+both instances of a kernel read a plan). Each returns the CUDA error of its
+launch; :class:`Kernel` raises when that is not 0, and counts the launches
+that succeeded (per entry in ``by_dtype``, their sum in ``launches``) and the (M, N,
+K, gs) shapes they ran. The nvcc output of a build (ptxas' registers and
+spills) is kept beside its library.
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ def nvcc_path() -> str:
 
 class Kernel:
     """One CUDA source, its shared library, its entry points by activation
-    type (``symbols``: dtype name -> C symbol) and its launch count."""
+    type (``symbols``: dtype name -> C symbol) and its launch counts: each
+    entry's (``by_dtype``) and their sum (``launches``)."""
 
     def __init__(self, name: str, source: str, symbols: dict[str, str],
                  argtypes):
@@ -74,7 +76,7 @@ class Kernel:
         self.source = CSRC / source
         self.symbols = symbols
         self.argtypes = argtypes
-        self.launches = 0
+        self.by_dtype = dict.fromkeys(symbols, 0)
         self.shapes: set[tuple[int, int, int, int]] = set()  # (M, N, K, gs)
         self.build_log = ""
         self._fns = None
@@ -85,6 +87,11 @@ class Kernel:
         names = re.findall(r'^\s*#\s*include\s+"([^"]+)"',
                            self.source.read_text(), flags=re.M)
         return [self.source.parent / name for name in names]
+
+    @property
+    def launches(self) -> int:
+        """Launches of all entry points since the last reset."""
+        return sum(self.by_dtype.values())
 
     def library_path(self) -> Path:
         text = b"".join(p.read_bytes() for p in [self.source, *self.headers()])
@@ -142,7 +149,7 @@ class Kernel:
                 f"CUDA kernel {self.name} ({dtype}) failed to launch: "
                 f"cudaError {rc} (M={m}, K={k}, N={n}, gs={gs})"
             )
-        self.launches += 1
+        self.by_dtype[dtype] += 1
         self.shapes.add(shape)
 
 
@@ -169,7 +176,7 @@ def build_all() -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count and forget the shapes it ran."""
+    """Zero every kernel's launch counts and forget the shapes it ran."""
     for k in KERNELS:
-        k.launches = 0
+        k.by_dtype = dict.fromkeys(k.symbols, 0)
         k.shapes.clear()

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .cuda_kernels import GROUPED_QMV
-from .dequant_matmul import _scratch, _sm_count
+from .dequant_matmul import _scratch, _sm_count, split_cost
 from .quant import is_quantized
 
 MAX_M = 64  # above this the op is compute-heavy: dequantize once, dense matmul
@@ -46,8 +46,6 @@ SLICE_K = 64               # K of one ring slice (whole groups: gs divides it)
 BANDS = ((1, 1), (2, 1), (4, 1), (8, 1), (8, 2), (8, 3), (8, 4), (8, 8))
 MAX_SPLITS = 16            # splits of K at most
 SB_GROUPS_MAX = 64         # groups of one split (its scale/bias table)
-# a split's fixed cost (prologue, partial tile, ticket), in slices of work
-SPLIT_OVERHEAD_SLICES = 0.5
 SIMPLE_TILE_N = 32         # output columns per block of the simple kernel
 
 
@@ -57,14 +55,6 @@ def blocks_per_sm(bands: int) -> int:
     3 at M <= 8, else 2) up to 24 rows, where the time is the weight's
     loads; above, the FMAs of the blocks on an SM share it, so one."""
     return 3 if bands == 1 else 2 if bands <= 3 else 1
-
-
-def split_cost(splits: int, tiles: int, units: int, slots: int) -> float:
-    """The plan's time model of a split of ``units`` slices: the waves of
-    ``tiles * splits`` blocks over ``slots`` resident blocks, times the
-    slices of the longest split plus SPLIT_OVERHEAD_SLICES."""
-    waves = -(-tiles * splits // slots)
-    return waves * (-(-units // splits) + SPLIT_OVERHEAD_SLICES)
 
 
 class KernelAPlan(NamedTuple):
@@ -85,12 +75,13 @@ class KernelAPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def plan_kernel_a(m: int, n: int, k: int, gs: int, sm_count: int,
-                  aligned: bool = True, bf16: bool = True) -> KernelAPlan:
-    """Kernel A's launch for x [m, k] (1 <= m <= MAX_M) and qg [k/gs, gs, n].
+                  aligned: bool = True) -> KernelAPlan:
+    """Kernel A's launch for x [m, k] (1 <= m <= MAX_M) and qg [k/gs, gs, n],
+    the same at bf16 and at float32 x (the two instances share the ring's
+    geometry, residency and time model).
 
-    The ring path takes bf16 x (``bf16``; its x stages hold 2-byte
-    elements), K a multiple of SLICE_K, gs in {16, 32, 64} (whole groups
-    in a slice) and 16-byte aligned x and qg; a ragged N takes it
+    The ring path takes K a multiple of SLICE_K, gs in {16, 32, 64} (whole
+    groups in a slice) and 16-byte aligned x and qg; a ragged N takes it
     too, through aligned-down row windows. One block covers all m rows, in
     the smallest instance of BANDS that holds them, and TILE_N columns. K is
     split in whole slices into the number of splits, at most MAX_SPLITS,
@@ -98,12 +89,13 @@ def plan_kernel_a(m: int, n: int, k: int, gs: int, sm_count: int,
     * sm_count`` resident blocks (the fewest among equals, so the splits are
     as even as the slices allow), but never fewer than keep a split's
     scale/bias table within SB_GROUPS_MAX groups (rule and constants fitted
-    to tools/sweep_kernel_a.py on an H100, PERF.md). Every other shape takes
+    to tools/sweep_kernel_a.py on an H100, and held at float32 by its
+    --f32 sweep, PERF.md). Every other shape takes
     the simple kernel: 32 output columns by 1 row (m = 1) or 8 rows a block,
     all of K."""
     if not 1 <= m <= MAX_M:
         raise ValueError(f"kernel A takes 1..{MAX_M} rows, got {m}")
-    if not (aligned and bf16) or k % SLICE_K or gs % 16 or SLICE_K % gs:
+    if not aligned or k % SLICE_K or gs % 16 or SLICE_K % gs:
         rows = 1 if m == 1 else 8
         return KernelAPlan(False, False, 0, 0, rows, k, 1, 0,
                            -(-n // SIMPLE_TILE_N) * -(-m // rows), 0, 0)
@@ -227,10 +219,18 @@ def quantized_matmul_grouped_ref(x, qg, sg, bg):
 _ENTRY = {torch.bfloat16: ("bfloat16", 2048), torch.float32: ("float32", 1024)}
 
 
+def launch_plan(x2: torch.Tensor, qg: torch.Tensor, sm_count: int) -> KernelAPlan:
+    """``plan_kernel_a`` for these tensors: their shapes and whether x2
+    and qg start on 16-byte boundaries."""
+    g, gs, n = qg.shape
+    aligned = x2.data_ptr() % 16 == 0 and qg.data_ptr() % 16 == 0
+    return plan_kernel_a(x2.shape[0], n, g * gs, gs, sm_count, aligned)
+
+
 def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
     """Kernel A on the card: x2 [M <= MAX_M, K] bf16 or f32 x grouped
     weight -> [M, N] in x2.dtype, launched as ``plan_kernel_a`` plans it
-    (f32 x always takes the simple path)."""
+    (the instance of x2's type)."""
     g, gs, n = qg.shape
     k = g * gs
     if x2.dtype not in _ENTRY:
@@ -262,9 +262,7 @@ def grouped_qmv_cuda(x2: torch.Tensor, qg, sg, bg) -> torch.Tensor:
     if m == 0:
         return out
     dev = x2.device
-    aligned = x2.data_ptr() % 16 == 0 and qg.data_ptr() % 16 == 0
-    plan = plan_kernel_a(m, n, k, gs, _sm_count(dev.index), aligned,
-                         entry == "bfloat16")
+    plan = launch_plan(x2, qg, _sm_count(dev.index))
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws, cnt = _scratch(dev, stream, plan)
     with torch.cuda.device(dev):

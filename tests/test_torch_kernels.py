@@ -19,15 +19,21 @@ import torch
 
 from qwen3_tts_tpu_torch.ops import cuda_kernels, dequant_matmul
 from qwen3_tts_tpu_torch.ops.dequant_matmul import (
+    F32_MAX_SPLITS,
+    F32_ROWS,
+    F32_WIDE_ROWS,
     MAX_SPLITS_WIDE,
     MIN_SPLIT_UNITS,
     SB_GROUPS_MAX,
     SLICE_K,
     TILE_N,
     dequant_matmul_cuda,
+    f32_blocks_per_sm,
     plan_kernel_b,
+    plan_kernel_b_f32,
     quantized_matmul,
     quantized_matmul_ref,
+    split_cost,
 )
 from qwen3_tts_tpu_torch.ops import grouped_qmv
 from qwen3_tts_tpu_torch.ops.grouped_qmv import (
@@ -130,6 +136,67 @@ def test_plan_kernel_b_splits_k_in_whole_units_and_fills_the_card(m, n, k, gs):
 def test_plan_kernel_b_sends_unaligned_pointers_to_the_simple_kernel():
     plan = plan_kernel_b(1, 1024, 3072, 64, H100_SMS, aligned=False)
     assert not plan.ring and plan.k_splits == 1 and plan.blocks == 16
+
+
+@pytest.mark.parametrize("m,n,k,gs", FLAGSHIP_CASES + RAGGED_CASES)
+def test_plan_kernel_b_float32_splits_k_in_whole_units_and_fills_the_card(
+        m, n, k, gs):
+    """The float32 ring takes the bf16 ring's shapes, covers m in the
+    fewest rows of F32_ROWS (tiles of F32_WIDE_ROWS above 64 rows) and
+    splits K in whole units into the count split_cost rates cheapest (the
+    fewest among equals) over its resident blocks."""
+    plan = plan_kernel_b_f32(m, n, k, gs, H100_SMS)
+    assert plan.ring == (k % SLICE_K == 0 and gs % 16 == 0)
+    assert plan.m_frags == 0
+    n_tiles = math.ceil(n / TILE_N)
+    if not plan.ring:
+        assert plan.tile_m == (4 if m <= 4 else 16)
+        assert plan.k_splits == 1 and plan.sb_groups == 0
+        assert plan.blocks == n_tiles * math.ceil(m / plan.tile_m)
+        assert plan.workspace_floats == plan.counters == 0
+        return
+    if m <= F32_ROWS[-1]:
+        assert plan.tile_m == min(r for r in F32_ROWS if r >= m)
+    else:
+        assert plan.tile_m == F32_WIDE_ROWS
+    tiles = n_tiles * math.ceil(m / plan.tile_m)
+    assert plan.k_unit == math.lcm(SLICE_K, gs)
+    units = k // plan.k_unit
+    splits = plan.k_splits
+    bounds = [s * units // splits * plan.k_unit for s in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == k
+    widths = [b - a for a, b in zip(bounds, bounds[1:])]
+    assert min(widths) >= plan.k_unit
+    assert plan.sb_groups == max(widths) // gs <= SB_GROUPS_MAX
+    fewest = math.ceil(k // gs / SB_GROUPS_MAX)
+    assert fewest <= splits <= max(fewest, min(units, F32_MAX_SPLITS))
+    slots = f32_blocks_per_sm(plan.tile_m) * H100_SMS
+    overhead = dequant_matmul.f32_split_overhead(plan.tile_m)
+    cost = split_cost(splits, tiles, units, slots, overhead)
+    for other in range(fewest, min(units, F32_MAX_SPLITS) + 1):
+        alt = split_cost(other, tiles, units, slots, overhead)
+        assert alt >= cost and (alt > cost or other >= splits)
+    assert plan.blocks == tiles * splits
+    split = splits > 1
+    assert plan.workspace_floats == (
+        splits * tiles * plan.tile_m * TILE_N if split else 0)
+    assert plan.counters == (tiles if split else 0)
+
+
+@pytest.mark.parametrize("offset,ring", [(0, True), (1, False), (2, False),
+                                         (4, True)])
+def test_plan_kernel_b_float32_sends_unaligned_x_to_the_simple_kernel(
+        offset, ring):
+    """launch_plan reads x's address: a float32 x that starts off a
+    16-byte boundary takes the simple f32 kernel, one that starts on it
+    the ring."""
+    flat = torch.zeros(8 * 2048 + 4, dtype=torch.float32)
+    assert flat.data_ptr() % 16 == 0
+    x = flat[offset:offset + 8 * 2048].view(8, 2048)
+    q = torch.zeros((1024, 2048), dtype=torch.uint8)
+    plan = dequant_matmul.launch_plan(x, q, 64, H100_SMS)
+    assert plan.ring == ring
+    assert plan == plan_kernel_b_f32(8, 1024, 2048, 64, H100_SMS, ring)
 
 
 def test_plan_kernel_b_splits_long_k_for_its_scale_bias_table():
@@ -251,11 +318,51 @@ def test_plan_kernel_a_sends_unaligned_pointers_to_the_simple_kernel():
     assert not plan.ring and plan.k_splits == 1 and plan.blocks == 32
 
 
-@pytest.mark.parametrize("m,n,k,gs", FLAGSHIP_A_CASES[:5] + [(3, 67, 64, 16)])
-def test_plan_kernel_a_sends_float32_x_to_the_simple_kernel(m, n, k, gs):
-    """The ring's x stages hold bf16; a float32 x takes the simple path,
-    1 row a block at M=1, else 8, with no split and no workspace."""
-    plan = plan_kernel_a(m, n, k, gs, H100_SMS, bf16=False)
+def _f32_tensors(m, n, k, gs, x_offset=0, q_offset=0):
+    """Float32 x [m, k] and codes qg [k/gs, gs, n] on the CPU whose first
+    elements lie x_offset floats and q_offset bytes past 64-byte
+    allocations."""
+    xf = torch.zeros(m * k + x_offset, dtype=torch.float32)
+    qf = torch.zeros(k * n + q_offset, dtype=torch.uint8)
+    assert xf.data_ptr() % 16 == qf.data_ptr() % 16 == 0
+    return (xf[x_offset:].view(m, k),
+            qf[q_offset:].view(k // gs, gs, n))
+
+
+@pytest.mark.parametrize("m,n,k,gs", FLAGSHIP_A_CASES[:5] + [
+    (3, 67, 64, 16), (1, 6144, 2048, 64), (8, 2048, 6144, 64),
+    (64, 2051, 2048, 64), (4, 1024, 2048, 32)])
+def test_plan_kernel_a_takes_aligned_float32_x_through_the_ring(m, n, k, gs):
+    """A float32 x on 16-byte boundaries takes the ring, planned as bf16's:
+    the smallest instance that holds m, whole-slice splits and a workspace
+    of one partial tile a split and tile."""
+    x, qg = _f32_tensors(m, n, k, gs)
+    plan = grouped_qmv.launch_plan(x, qg, H100_SMS)
+    assert plan == plan_kernel_a(m, n, k, gs, H100_SMS)
+    assert plan.ring and plan.bands >= 1 and plan.rows >= m
+    assert plan.ragged == (n % 16 != 0)
+    units = k // plan.k_unit
+    bounds = [s * units // plan.k_splits * plan.k_unit
+              for s in range(plan.k_splits + 1)]
+    assert bounds[-1] == k and all(
+        b - a >= grouped_qmv.SLICE_K for a, b in zip(bounds, bounds[1:]))
+    tiles = math.ceil(n / grouped_qmv.TILE_N)
+    assert plan.blocks == tiles * plan.k_splits
+    assert plan.workspace_floats == (
+        plan.k_splits * tiles * plan.rows * grouped_qmv.TILE_N
+        if plan.k_splits > 1 else 0)
+
+
+@pytest.mark.parametrize("m,n,k,gs,x_offset,q_offset", [
+    (1, 2048, 2048, 64, 1, 0), (8, 6144, 2048, 64, 2, 0),
+    (3, 1024, 2048, 64, 0, 4), (5, 33, 36, 12, 0, 0), (2, 40, 96, 48, 0, 0),
+    (1, 1024, 1024, 128, 0, 0), (8, 512, 1056, 32, 0, 0)])
+def test_plan_kernel_a_sends_unaligned_or_ragged_float32_x_to_the_simple_kernel(
+        m, n, k, gs, x_offset, q_offset):
+    """Unaligned x or qg, K not a multiple of 64, or gs not dividing 64
+    take the simple kernel: 1 row a block at M=1, else 8, no split."""
+    x, qg = _f32_tensors(m, n, k, gs, x_offset, q_offset)
+    plan = grouped_qmv.launch_plan(x, qg, H100_SMS)
     assert not plan.ring and plan.bands == 0 and plan.k_splits == 1
     assert plan.rows == (1 if m == 1 else 8) and plan.workspace_floats == 0
 
@@ -466,8 +573,17 @@ def test_kernel_b_repeats_bit_for_bit_and_reuses_its_workspace_on_cuda(
 # float32 instances: f32 products and sums in another order than the plain
 # version's; 1e-5 of the output's range is ~100 f32 ulps of it
 F32_REL_TOL = 1e-5
+# the rings: split-K at M = 1 and 8, M = 16, 24, 32 and 64, the ragged N =
+# 2051, gs = 16 and 32; then the simple kernels (ragged K or gs)
 F32_CASES = [(1, 6144, 2048, 64), (8, 2048, 6144, 64), (40, 2051, 2048, 64),
+             (64, 6144, 2048, 64), (32, 1024, 3072, 64), (1, 2051, 2048, 64),
+             (16, 6144, 2048, 64), (24, 2048, 6144, 64),
+             (2, 1040, 6144, 16), (4, 1024, 2048, 32),
              (3, 67, 64, 16), (5, 33, 36, 12)]
+# kernel B's rows above kernel A's 64: the prefill bucket and a tp = 2
+# gate/up shard at 512 rows
+F32_B_CASES = [(128, 1024, 3072, 64), (128, 6144, 2048, 64),
+               (512, 3072, 2048, 64)]
 
 
 def _close_f32(got, want):
@@ -493,23 +609,53 @@ def no_tf32(cuda_device):
 def test_kernel_a_float32_matches_plain_and_repeats_on_cuda(no_tf32, m, n, k, gs):
     x, qg, sg, bg = _card_grouped(no_tf32, 30, m, n, k, gs)
     x = x.float() + 1e-3 * torch.randn(x.shape, device=no_tf32)
-    before = cuda_kernels.GROUPED_QMV.launches
+    assert grouped_qmv.launch_plan(x, qg, H100_SMS).ring == (
+        k % 64 == 0 and gs in (16, 32, 64))
+    before = dict(cuda_kernels.GROUPED_QMV.by_dtype)
     got = quantized_matmul_grouped(x, qg, sg, bg)
-    assert cuda_kernels.GROUPED_QMV.launches == before + 1
+    assert cuda_kernels.GROUPED_QMV.by_dtype == {**before, "float32": before["float32"] + 1}
     assert torch.equal(got, grouped_qmv_cuda(x, qg, sg, bg))
     _close_f32(got, quantized_matmul_grouped_ref(x, qg, sg, bg))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,gs", F32_CASES + [(128, 1024, 3072, 64)])
+@pytest.mark.parametrize("m,n,k,gs", F32_CASES + F32_B_CASES)
 def test_kernel_b_float32_matches_plain_and_repeats_on_cuda(no_tf32, m, n, k, gs):
     g, q, s, b = _card_weights(no_tf32, 31, n, k, gs)
     x = torch.randn((m, k), generator=g, device=no_tf32)
-    before = cuda_kernels.DEQUANT_MATMUL.launches
+    assert dequant_matmul.launch_plan(x, q, gs, H100_SMS).ring == (
+        k % 64 == 0 and gs % 16 == 0)
+    before = dict(cuda_kernels.DEQUANT_MATMUL.by_dtype)
     got = quantized_matmul(x, q, s, b)
-    assert cuda_kernels.DEQUANT_MATMUL.launches == before + 1
+    assert cuda_kernels.DEQUANT_MATMUL.by_dtype == {**before, "float32": before["float32"] + 1}
     assert torch.equal(got, dequant_matmul_cuda(x, q, s, b))
     _close_f32(got, quantized_matmul_ref(x, q, s, b))
+
+
+@pytest.mark.cuda
+def test_float32_instances_repeat_bit_for_bit_between_each_others_launches_on_cuda(
+        no_tf32):
+    """Both float32 rings split K and share one stream's workspace and
+    counters: A, B, A and B, A, B on that stream give each one's bits
+    again, and both hold their plain versions."""
+    a_in = _card_grouped(no_tf32, 40, 8, 6144, 2048, 64)
+    a_in = (a_in[0].float(), *a_in[1:])
+    g, q, s, b = _card_weights(no_tf32, 41, 2048, 6144, 64)
+    b_in = (torch.randn((1, 6144), generator=g, device=no_tf32), q, s, b)
+    big_in = (torch.randn((128, 6144), generator=g, device=no_tf32), q, s, b)
+    assert grouped_qmv.launch_plan(a_in[0], a_in[1], H100_SMS).k_splits > 1
+    for x in (b_in[0], big_in[0]):
+        assert dequant_matmul.launch_plan(x, q, 64, H100_SMS).k_splits > 1
+    a_first = grouped_qmv_cuda(*a_in)
+    b_first = dequant_matmul_cuda(*b_in)
+    big = dequant_matmul_cuda(*big_in)  # grows the shared workspace
+    assert torch.equal(a_first, grouped_qmv_cuda(*a_in))
+    assert torch.equal(b_first, dequant_matmul_cuda(*b_in))
+    assert torch.equal(a_first, grouped_qmv_cuda(*a_in))
+    assert torch.equal(big, dequant_matmul_cuda(*big_in))
+    _close_f32(a_first, quantized_matmul_grouped_ref(*a_in))
+    _close_f32(b_first, quantized_matmul_ref(*b_in))
+    _close_f32(big, quantized_matmul_ref(*big_in))
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ then the named phase, with the script's float rules.
 
 ``parallel`` runs ``phase_parallel`` with no kernel shape checked before
 it (so it holds every kernel B shape of its ranks against the plain
-version) and prints its launches, shapes and seconds. ``train_parallel``
+version, the float32 steps' at float32) and prints its launches (the
+float32 instances' apart), shapes and seconds. ``train_parallel``
 runs ``phase_train_parallel`` (eight training ranks on the card) and
 prints its launches (both 0) and seconds.
 """
@@ -45,8 +46,9 @@ def main() -> None:
                         "launches": counts,
                         "phase_s": time.perf_counter() - t0})
         return
-    counts, shapes = chip_smoke.phase_parallel(torch, {})
+    counts, shapes, f32_counts = chip_smoke.phase_parallel(torch, {}, {})
     chip_smoke.log({"phase": "parallel", "step": "alone", "launches": counts,
+                    "f32_launches": f32_counts,
                     "shapes": {k: len(v) for k, v in shapes.items()},
                     "phase_s": time.perf_counter() - t0})
 

@@ -5,17 +5,21 @@ picks and at others, beside ``_dense_route`` (its library yardstick), on
 one NVIDIA GPU: the measurement behind the plan's constants.
 
     python3 tools/sweep_kernel_a.py [--rows 1,8,24,32,64]
-        [--shapes 6144x2048,2048x6144] [--splits 1,2,4,8]
+        [--shapes 6144x2048,2048x6144] [--splits 1,2,4,8] [--f32]
         [--variant 'NAME:old=>new@@old2=>new2' ...] [--probe ...]
 
-Each ``--variant`` builds a copy of the source (into build/variants/NAME/)
-with the given text replaced, e.g. ``st8:kRows <= 8 ? 6=>kRows <= 8 ? 8``,
-and is timed with the same entry point after the committed source
-("base"). A ``--probe`` is a variant that leaves part of the work out to
-see what it costs: it is timed, and its output is not checked. One JSON line per (variant, M, N, K, splits): kernel time, bound
-and error against the plain version; then one line per shape and variant
-comparing the plan's split with the fastest one measured and with the
-library call. Timing as ``chip_smoke.py``'s kernel phase.
+``--f32`` times the float32 instance (float32 x and out, its bound at the
+float32 CUDA-core rate, error within chip_smoke.TOL_F32).
+
+Each ``--variant`` builds a copy of the source (into
+build/variants/grouped_qmv/NAME/) with the given text replaced, e.g.
+``st8:kRows <= 8 ? 6=>kRows <= 8 ? 8``, and is timed with the same entry
+point after the committed source ("base"). A ``--probe`` is a variant
+that leaves part of the work out to see what it costs: it is timed, and
+its output is not checked. One JSON line per (variant, M, N, K, splits):
+kernel time, bound and error against the plain version; then one line per
+shape and variant comparing the plan's split with the fastest one measured
+and with the library call. Timing as ``chip_smoke.py``'s kernel phase.
 """
 
 from __future__ import annotations
@@ -35,25 +39,26 @@ sys.path.insert(0, str(ROOT))
 SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 14, 16)
 
 
-def variant_kernel(spec: str):
-    """A Kernel built from a copy of grouped_qmv.cu with text replaced."""
+def variant_kernel(spec: str, base=None):
+    """A Kernel built from a copy of ``base``'s source (grouped_qmv.cu by
+    default) with text replaced."""
     from qwen3_tts_tpu_torch.ops import cuda_kernels
 
     name, _, edits = spec.partition(":")
-    base = cuda_kernels.GROUPED_QMV
+    base = base or cuda_kernels.GROUPED_QMV
     text = base.source.read_text()
     for edit in filter(None, edits.split("@@")):
         old, new = edit.split("=>")
         if old not in text:
             raise SystemExit(f"variant {name}: {old!r} not in the source")
         text = text.replace(old, new)
-    out = ROOT / "build" / "variants" / name
+    out = ROOT / "build" / "variants" / base.name / name
     out.mkdir(parents=True, exist_ok=True)
     for header in base.headers():
         shutil.copy(header, out / header.name)
     (out / base.source.name).write_text(text)
-    return cuda_kernels.Kernel(f"grouped_qmv_{name}", str(out / base.source.name),
-                               base.symbol, base.argtypes)
+    return cuda_kernels.Kernel(f"{base.name}_{name}", str(out / base.source.name),
+                               base.symbols, base.argtypes)
 
 
 def main() -> None:
@@ -64,6 +69,8 @@ def main() -> None:
     ap.add_argument("--splits", default=",".join(map(str, SPLITS)))
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--probe", action="append", default=[])
+    ap.add_argument("--f32", action="store_true",
+                    help="the float32 instance instead of the bf16 one")
     args = ap.parse_args()
 
     import torch
@@ -85,8 +92,12 @@ def main() -> None:
     for spec in args.variant + args.probe:
         kernels[spec.partition(":")[0]] = variant_kernel(spec)
     probes = {spec.partition(":")[0] for spec in args.probe}
+    dtype, tol = ((torch.float32, cs.TOL_F32) if args.f32
+                  else (torch.bfloat16, cs.TOL))
+    entry = str(dtype).replace("torch.", "")
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each, together
-        fns = dict(zip(kernels, pool.map(Kernel.load, kernels.values())))
+        fns = {name: entries[entry] for name, entries in
+               zip(kernels, pool.map(Kernel.load, kernels.values()))}
     for name, kern in kernels.items():
         ptxas = [ln.strip() for ln in kern.build_log.splitlines()
                  if "registers" in ln or "bytes spill" in ln]
@@ -101,8 +112,7 @@ def main() -> None:
             plan = plan_kernel_a(m, n, k, gs, sms)
             units = k // SLICE_K
             tiles = -(-n // TILE_N)
-            x = torch.randn((m, k), generator=gen, device=dev)
-            x = x.to(torch.bfloat16)
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
             copies = max(1, min(32, math.ceil(128e6 / (n * k * 1.125))))
             sets = []
             for _ in range(copies):
@@ -126,8 +136,7 @@ def main() -> None:
 
                     def run(x, qg, sg, bg, fn=fn, splits=splits,
                             groups=groups, ws=ws, cnt=cnt):
-                        out = torch.empty((m, n), dtype=torch.bfloat16,
-                                          device=dev)
+                        out = torch.empty((m, n), dtype=dtype, device=dev)
                         rc = fn(x.data_ptr(), qg.data_ptr(), sg.data_ptr(),
                                 bg.data_ptr(), out.data_ptr(), ws.data_ptr(),
                                 cnt.data_ptr(), m, k, n, gs, plan.band_rows,
@@ -138,16 +147,16 @@ def main() -> None:
 
                     err = (run(*sets[0]).float() - want).abs().max().item()
                     if name not in probes and not (
-                            err <= cs.TOL * want.abs().max().item()):
+                            err <= tol * want.abs().max().item()):
                         cs.fail(f"{name} M={m} N={n} K={k} splits={splits}: "
                                 f"error {err}")
                     times[splits] = cs.device_time_ms(torch, run, sets)
                     cs.log({"variant": name, "M": m, "N": n, "K": k,
                             "splits": splits, "kernel_ms": times[splits],
-                            "bound_ms": cs.bound_ms(m, n, k, gs)[0],
+                            "bound_ms": cs.bound_ms(m, n, k, gs, args.f32)[0],
                             "max_abs_err": err})
                 best = min(times, key=times.get)
-                cs.log({"variant": name, "M": m, "N": n, "K": k,
+                cs.log({"variant": name, "M": m, "N": n, "K": k, "f32": args.f32,
                         "plan_splits": plan.k_splits,
                         "plan_ms": times[plan.k_splits], "best_splits": best,
                         "best_ms": times[best], "library_ms": lib})
