@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.linear import linear
 from ..parallel.comm import copy_to_tp, gather_seq
+from ..profiling import trace
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -263,59 +264,61 @@ def attention(
     The projections stay whole-batch; only the attention read splits.
     ``mesh``: the head counts are this rank's; the o projection sums over
     its tp group. ``sp``: x is this rank's T slice (module docstring)."""
-    x = _tp_input(x, mesh, sp)
-    B, T, _ = x.shape
-    groups = n_heads // n_kv_heads
-    if "qkv" in p:  # fused projection (fuse_block_projections)
-        q_dim = n_heads * head_dim
-        kv_dim = n_kv_heads * head_dim
-        qkv = linear(x, p["qkv"])
-        q = qkv[..., :q_dim].reshape(B, T, n_heads, head_dim)
-        k = qkv[..., q_dim:q_dim + kv_dim].reshape(B, T, n_kv_heads, head_dim)
-        v = qkv[..., q_dim + kv_dim:].reshape(B, T, n_kv_heads, head_dim)
-    else:
-        q = linear(x, p["q"]).reshape(B, T, n_heads, head_dim)
-        k = linear(x, p["k"]).reshape(B, T, n_kv_heads, head_dim)
-        v = linear(x, p["v"]).reshape(B, T, n_kv_heads, head_dim)
+    with trace("qwen3_tts.model.attention"):
+        x = _tp_input(x, mesh, sp)
+        B, T, _ = x.shape
+        groups = n_heads // n_kv_heads
+        if "qkv" in p:  # fused projection (fuse_block_projections)
+            q_dim = n_heads * head_dim
+            kv_dim = n_kv_heads * head_dim
+            qkv = linear(x, p["qkv"])
+            q = qkv[..., :q_dim].reshape(B, T, n_heads, head_dim)
+            k = qkv[..., q_dim:q_dim + kv_dim].reshape(B, T, n_kv_heads,
+                                                       head_dim)
+            v = qkv[..., q_dim + kv_dim:].reshape(B, T, n_kv_heads, head_dim)
+        else:
+            q = linear(x, p["q"]).reshape(B, T, n_heads, head_dim)
+            k = linear(x, p["k"]).reshape(B, T, n_kv_heads, head_dim)
+            v = linear(x, p["v"]).reshape(B, T, n_kv_heads, head_dim)
 
-    if qk_norm:  # per-head RMSNorm over head_dim (Qwen3)
-        q = rmsnorm(q, p["q_norm"], rms_eps)
-        k = rmsnorm(k, p["k_norm"], rms_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        if qk_norm:  # per-head RMSNorm over head_dim (Qwen3)
+            q = rmsnorm(q, p["q_norm"], rms_eps)
+            k = rmsnorm(k, p["k_norm"], rms_eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    _write_rows(cache_k, k, pos)
-    _write_rows(cache_v, v, pos)
+        _write_rows(cache_k, k, pos)
+        _write_rows(cache_v, v, pos)
 
-    qg = q.reshape(B, T, n_kv_heads, groups, head_dim)
-    steps = torch.arange(T, device=x.device)
-    if isinstance(pos, torch.Tensor):
-        qry_idx = (pos[:, None] + steps[None, :])[:, :, None]    # [B, T, 1]
-    else:
-        qry_idx = (pos + steps)[None, :, None]                   # [1, T, 1]
-    pad_b = pad_len[:, None, None] if isinstance(pad_len, torch.Tensor) \
-        else pad_len
-    if window_split is None:
-        ctx = _scores_ctx(qg, cache_k, cache_v, qry_idx, pad_b, head_dim,
-                          x.dtype)
-    else:
-        parts = []
-        lo = 0
-        for size, win in window_split:
-            hi = lo + size
-            rows = slice(lo, hi)
-            parts.append(_scores_ctx(
-                qg[rows], cache_k[rows, :win], cache_v[rows, :win],
-                qry_idx[rows] if qry_idx.shape[0] == B else qry_idx,
-                pad_b[rows] if isinstance(pad_b, torch.Tensor) else pad_b,
-                head_dim, x.dtype))
-            lo = hi
-        if lo != B:
-            raise ValueError(f"window_split {window_split} covers {lo} of "
-                             f"{B} rows")
-        ctx = torch.cat(parts, dim=0)
-    ctx = ctx.reshape(B, T, n_heads * head_dim)
-    return AttnOut(linear(ctx, p["o"], mesh, sp), cache_k, cache_v)
+        qg = q.reshape(B, T, n_kv_heads, groups, head_dim)
+        steps = torch.arange(T, device=x.device)
+        if isinstance(pos, torch.Tensor):
+            qry_idx = (pos[:, None] + steps[None, :])[:, :, None]  # [B, T, 1]
+        else:
+            qry_idx = (pos + steps)[None, :, None]                 # [1, T, 1]
+        pad_b = pad_len[:, None, None] if isinstance(pad_len, torch.Tensor) \
+            else pad_len
+        if window_split is None:
+            ctx = _scores_ctx(qg, cache_k, cache_v, qry_idx, pad_b, head_dim,
+                              x.dtype)
+        else:
+            parts = []
+            lo = 0
+            for size, win in window_split:
+                hi = lo + size
+                rows = slice(lo, hi)
+                parts.append(_scores_ctx(
+                    qg[rows], cache_k[rows, :win], cache_v[rows, :win],
+                    qry_idx[rows] if qry_idx.shape[0] == B else qry_idx,
+                    pad_b[rows] if isinstance(pad_b, torch.Tensor) else pad_b,
+                    head_dim, x.dtype))
+                lo = hi
+            if lo != B:
+                raise ValueError(f"window_split {window_split} covers {lo} of "
+                                 f"{B} rows")
+            ctx = torch.cat(parts, dim=0)
+        ctx = ctx.reshape(B, T, n_heads * head_dim)
+        return AttnOut(linear(ctx, p["o"], mesh, sp), cache_k, cache_v)
 
 
 def _tp_input(x: torch.Tensor, mesh, sp: bool) -> torch.Tensor:

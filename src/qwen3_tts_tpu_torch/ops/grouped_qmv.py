@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..profiling import trace
 from .cuda_kernels import GROUPED_QMV
 from .dequant_matmul import _scratch, _sm_count, split_cost
 from .quant import is_quantized
@@ -280,13 +281,14 @@ def quantized_matmul_grouped(x, qg, sg, bg):
     """x [..., K] x grouped-quantized W -> [..., N] (decode entry point).
     CPU tensors take the plain version; CUDA tensors launch kernel A, or
     take the dense route above MAX_M rows."""
-    if not x.is_cuda:
-        return quantized_matmul_grouped_ref(x, qg, sg, bg)
-    g, gs, n = qg.shape
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, g * gs).contiguous()
-    if x2.shape[0] > MAX_M:
-        out = _dense_route(x2, qg, sg, bg)
-    else:
-        out = grouped_qmv_cuda(x2, qg, sg, bg)
-    return out.reshape(*lead, n)
+    with trace("qwen3_tts.kernel.grouped_qmv"):
+        if not x.is_cuda:
+            return quantized_matmul_grouped_ref(x, qg, sg, bg)
+        g, gs, n = qg.shape
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, g * gs).contiguous()
+        if x2.shape[0] > MAX_M:
+            out = _dense_route(x2, qg, sg, bg)
+        else:
+            out = grouped_qmv_cuda(x2, qg, sg, bg)
+        return out.reshape(*lead, n)

@@ -1,15 +1,16 @@
-"""Tracing, profiling and structured metrics (the JAX package's
-profiling.py on torch.profiler and CUDA synchronisation).
+"""Tracing and structured metrics (the JAX package's profiling.py on
+torch.profiler).
 
-- ``trace(label)``: a named host range in the profiler's timeline
-  (``torch.profiler.record_function``);
-- ``profile_to(dir)``: a CPU + CUDA trace of the block, written into
-  ``dir`` as a Chrome trace (chrome://tracing, Perfetto);
-- ``StageTimer``: wall time per stage, with ``sync=True`` a
-  ``torch.cuda.synchronize()`` at each boundary so stages are device
-  boundaries, not enqueue boundaries;
+- ``trace(name)``: a named span of host time in a profiler's trace, and
+  nothing at all when no profiler records;
 - ``emit_metrics``: one JSON line per event on stderr, opt-in with
   QWEN3_TTS_METRICS=1.
+
+The decode path opens its spans under ``qwen3_tts.``: the engine's step
+(``engine.dispatch``, ``engine.collect`` and the ``engine.host_wait`` for
+the step's host copy inside it), the model's layers (``model.talker``,
+``model.predictor``, ``model.code2wav``, ``model.attention``) and kernel
+A's launch path (``kernel.grouped_qmv``).
 """
 
 from __future__ import annotations
@@ -19,72 +20,34 @@ import json
 import os
 import sys
 import time
-from dataclasses import dataclass, field
-from typing import Any, Iterator
+from typing import Any
 
-import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 
 def metrics_enabled() -> bool:
     return os.environ.get("QWEN3_TTS_METRICS", "0") not in ("", "0", "false")
 
 
-@contextlib.contextmanager
-def trace(label: str) -> Iterator[None]:
-    """Annotate a region in the profiler timeline (a no-op range when no
-    trace is being captured)."""
-    with torch.profiler.record_function(label):
-        yield
+_NO_SPAN = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def profile_to(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Trace the block on the CPU and, when there is one, the CUDA device;
-    the trace is written to ``log_dir/trace.json``."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+def trace(name: str):
+    """A context manager that records ``name`` as a span of host time
+    while a profiler records; with none recording, one shared no-op
+    object (no allocation, no RecordFunction: a single read of the flag
+    that the profiler's start and stop set).
 
-
-@dataclass
-class StageTimer:
-    """Accumulates wall time per named stage.
-
-    ``sync=True`` waits for the CUDA device before and after each stage
-    (kernels are enqueued asynchronously)."""
-
-    sync: bool = False
-    stages: dict[str, float] = field(default_factory=dict)
-    counts: dict[str, int] = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        if self.sync:
-            self._block()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync:
-                self._block()
-            dt = time.perf_counter() - t0
-            self.stages[name] = self.stages.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    @staticmethod
-    def _block() -> None:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-    def summary(self) -> dict[str, Any]:
-        return {
-            name: {"total_s": round(t, 4), "calls": self.counts[name]}
-            for name, t in sorted(self.stages.items())
-        }
+    The span is a ``_RecordFunctionFast`` range, which the profiler keeps
+    as a host ``cpu_op`` event on the clock of the device's kernels. It
+    is not ``torch.profiler.record_function``: a range of user scope also
+    leaves a shadow of itself on the device's timeline, spanning the
+    kernels launched inside it and every gap between them, which a reader
+    of the device's time would count as work."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def emit_metrics(event: str, payload: dict[str, Any]) -> None:

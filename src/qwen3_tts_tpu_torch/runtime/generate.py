@@ -74,6 +74,7 @@ from ..models.talker import (
 from ..ops.grouped_qmv import grouped_layout, pack_grouped_tree
 from ..ops.pcm import wav_to_pcm16
 from ..parallel.sharding import cache_sharding, cp_mesh
+from ..profiling import trace
 from .prompts import PromptSpec
 from .sampling import SamplingConfig, sample_token
 
@@ -364,17 +365,18 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
         tok = last_token
         toks, hiddens = [], []
         for s in range(n_steps):
-            emb = merge_step_tokens(params, t, tok)[:, None, :]
-            hidden, logits, _, _ = talker_forward(
-                params, t, emb, ck, cv, pos, cos_t, sin_t,
-                pad_len=pad_len, window_split=window_split, mesh=mesh,
-            )
-            h = hidden[:, -1, :]
-            frame = [sample_token(logits[:, -1, :], generator, sampling)]
-            hj = h
-            for _ in range(1, fps):  # MTP frames from the same weight pass
-                lg, hj = mtp_logits(params, t, hj, frame[-1])
-                frame.append(sample_token(lg, generator, sampling))
+            with trace("qwen3_tts.model.talker"):
+                emb = merge_step_tokens(params, t, tok)[:, None, :]
+                hidden, logits, _, _ = talker_forward(
+                    params, t, emb, ck, cv, pos, cos_t, sin_t,
+                    pad_len=pad_len, window_split=window_split, mesh=mesh,
+                )
+                h = hidden[:, -1, :]
+                frame = [sample_token(logits[:, -1, :], generator, sampling)]
+                hj = h
+                for _ in range(1, fps):  # MTP frames from the same weights
+                    lg, hj = mtp_logits(params, t, hj, frame[-1])
+                    frame.append(sample_token(lg, generator, sampling))
             tok = _hold_inactive(active, torch.stack(frame, dim=1),
                                  t.codec_pad)                # [B, fps]
             pos = _hold_inactive(active, pos + 1, pos)
@@ -382,28 +384,31 @@ def make_decode_chunk_fn(cfg: ModelConfig, chunk: int,
             hiddens.append(h)
         tokens_bc = torch.cat(toks, dim=1)                   # [B, chunk]
         B = tokens_bc.shape[0]
-        # each step's hidden conditions the residuals of all its fps frames
-        flat_h = torch.stack(hiddens, dim=1).repeat_interleave(
-            fps, dim=1).reshape(B * chunk, -1)
-        # control tokens (BOS/EOS/PAD >= codebook_size) are clamped for the
-        # predictor; the host masks frames at/after EOS anyway
-        flat_cb0 = tokens_bc.reshape(-1).clamp(0, cb_size - 1)
-        residuals = predict_residuals(
-            cp_params, cfg, flat_h, flat_cb0,
-            generator=generator if cp_stoch else None, mesh=cpm,
-        )
+        with trace("qwen3_tts.model.predictor"):
+            # each step's hidden conditions all its fps frames' residuals
+            flat_h = torch.stack(hiddens, dim=1).repeat_interleave(
+                fps, dim=1).reshape(B * chunk, -1)
+            # control tokens (BOS/EOS/PAD >= codebook_size) are clamped for
+            # the predictor; the host masks frames at/after EOS anyway
+            flat_cb0 = tokens_bc.reshape(-1).clamp(0, cb_size - 1)
+            residuals = predict_residuals(
+                cp_params, cfg, flat_h, flat_cb0,
+                generator=generator if cp_stoch else None, mesh=cpm,
+            )
         codes = torch.cat(
             [flat_cb0.reshape(B, chunk, 1),
              residuals.reshape(B, chunk, -1)], dim=-1,
         ).transpose(1, 2)                                    # [B, Q, chunk]
-        wav_chunk, cstate = decode_codes_streaming(
-            codec_params, cfg, codes, cstate, n_frames)
+        with trace("qwen3_tts.model.code2wav"):
+            wav_chunk, cstate = decode_codes_streaming(
+                codec_params, cfg, codes, cstate, n_frames)
+            pcm = wav_to_pcm16(wav_chunk)
         is_eos = (tokens_bc == t.codec_eos).int()
         n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
                               torch.full_like(is_eos[:, 0], chunk))
         return (cache_k, cache_v, cstate, pos, tok,
                 _hold_inactive(active, n_frames + chunk, n_frames), n_valid,
-                codes, wav_to_pcm16(wav_chunk))
+                codes, pcm)
 
     return decode_chunk
 
@@ -525,20 +530,23 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
         tok, rs = last_token, res_sum
         toks, residuals = [], []
         for _ in range(n_steps):
-            # the previous step's fps frames, each its full feedback
-            # embedding plus its own trailing-text row, merged into one input
-            prev = params["codec_emb"][tok].to(rs.dtype) + rs    # [B, fps, D]
-            trail = torch.stack([trailing_lookup(trailing, g + j)
-                                 for j in range(fps)], dim=1)
-            emb = merge_step_embs(params, t, prev + trail)[:, None, :]
-            hidden, logits, _, _ = talker_forward(
-                params, t, emb, ck, cv, pos, cos_t, sin_t,
-                pad_len=pad_len, window_split=window_split, mesh=mesh,
-            )
-            cb0 = sample_token(logits[:, -1, :], generator, sampling)
-            frame_toks, rs_new, res = feedback_step_frames(
-                params, cp_params, cfg, sampling, hidden[:, -1, :], cb0,
-                generator, rs.dtype, mesh)
+            with trace("qwen3_tts.model.talker"):
+                # the previous step's fps frames, each its full feedback
+                # embedding plus its own trailing-text row, merged into one
+                # input
+                prev = params["codec_emb"][tok].to(rs.dtype) + rs  # [B,fps,D]
+                trail = torch.stack([trailing_lookup(trailing, g + j)
+                                     for j in range(fps)], dim=1)
+                emb = merge_step_embs(params, t, prev + trail)[:, None, :]
+                hidden, logits, _, _ = talker_forward(
+                    params, t, emb, ck, cv, pos, cos_t, sin_t,
+                    pad_len=pad_len, window_split=window_split, mesh=mesh,
+                )
+                cb0 = sample_token(logits[:, -1, :], generator, sampling)
+            with trace("qwen3_tts.model.predictor"):
+                frame_toks, rs_new, res = feedback_step_frames(
+                    params, cp_params, cfg, sampling, hidden[:, -1, :], cb0,
+                    generator, rs.dtype, mesh)
             tok = _hold_inactive(active, frame_toks, t.codec_pad)  # [B, fps]
             rs = _hold_inactive(active, rs_new, rs)
             pos = _hold_inactive(active, pos + 1, pos)
@@ -550,14 +558,16 @@ def make_decode_chunk_fn_feedback(cfg: ModelConfig, chunk: int,
             [tokens_bc.clamp(0, cb_size - 1)[:, :, None],
              torch.cat(residuals, dim=1)], dim=-1,
         ).transpose(1, 2)                                          # [B, Q, chunk]
-        wav_chunk, cstate = decode_codes_streaming(
-            codec_params, cfg, codes, cstate, n_frames)
+        with trace("qwen3_tts.model.code2wav"):
+            wav_chunk, cstate = decode_codes_streaming(
+                codec_params, cfg, codes, cstate, n_frames)
+            pcm = wav_to_pcm16(wav_chunk)
         is_eos = (tokens_bc == t.codec_eos).int()
         n_valid = torch.where(is_eos.any(dim=1), is_eos.argmax(dim=1),
                               torch.full_like(is_eos[:, 0], chunk))
         return (cache_k, cache_v, cstate, pos, tok,
                 _hold_inactive(active, n_frames + chunk, n_frames), rs, g,
-                n_valid, codes, wav_to_pcm16(wav_chunk))
+                n_valid, codes, pcm)
 
     return decode_chunk
 

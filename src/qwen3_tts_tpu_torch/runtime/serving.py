@@ -59,6 +59,7 @@ from ..engine.weights import _leaves
 from ..models.codec import init_codec_stream_state, max_stream_frames
 from ..models.layers import kv_cache_init, kv_env_format, rope_tables
 from ..models.talker import talker_forward
+from ..profiling import trace
 from . import generate
 from .generate import (
     _HostCopy,
@@ -542,54 +543,60 @@ class ServingEngine:
         dispatched past a stream's end never credits frames to the slot's
         next occupant. No step is dispatched once every stream has its
         whole budget dispatched."""
-        self._advance_prefills()
-        active = [(slot, s) for slot, s in enumerate(self._slots)
-                  if s is not None and s.active and not s.done]
-        # nothing to decode, or a step that would be thrown away whole
-        # (every stream has its budget dispatched): the caller collects
-        if all(self._host_frames[slot] >= s.max_frames for slot, s in active):
-            return None
-        chunk = self._pick_chunk(active)
-        steps = chunk // self.fps        # cache positions a dispatch advances
-        S = self.cfg.max_seq_len
-        size = self.B // self.n_groups
-        wins = tuple(
-            generate.attn_bucket(max((self._host_pos[slot] for slot, _ in active
-                                      if slot // size == g), default=0) + steps,
-                                 S)
-            for g in range(self.n_groups))
-        fn = self._decode_fn(chunk, wins)
-        frames_before = self.frames_dev
-        if self.feedback:
-            (_, _, self.cstate, self.pos, self.tok, self.frames_dev,
-             self.res_sum, self.trail_g, n_valid, codes, wav) = fn(
-                self.params, self.cp_params, self.codec_params, self.cache_k,
-                self.cache_v, self.cstate, self.trail, self.pos, self.pad,
-                self.frames_dev, self.tok, self.res_sum, self.trail_g,
-                self.rng, active=self.active_mask)
-        else:
-            (_, _, self.cstate, self.pos, self.tok, self.frames_dev, n_valid,
-             codes, wav) = fn(
-                self.params, self.cp_params, self.codec_params, self.cache_k,
-                self.cache_v, self.cstate, self.pos, self.pad,
-                self.frames_dev, self.tok, self.rng, active=self.active_mask)
-        n_valid = n_valid.to(torch.int32)
-        if self.accum:
-            self._accum_write(wav, frames_before, chunk)
-            fetch, codes, wav = n_valid, None, None
-        elif _defer_wav():
-            fetch = n_valid
-            codes = _HostCopy(codes, start=False)
-            wav = _HostCopy(wav, start=False)
-        else:  # one packed read: valid counts, codes, PCM
-            fetch = torch.cat([n_valid, codes.reshape(-1).to(torch.int32),
-                               wav.reshape(-1).to(torch.int32)])
-            codes = wav = None
-        for slot, _ in active:
-            self._host_pos[slot] += steps
-            self._host_frames[slot] += chunk
-        snapshot = [(slot, s.stream_id) for slot, s in active]
-        return snapshot, chunk, _HostCopy(fetch, _async_fetch()), codes, wav
+        with trace("qwen3_tts.engine.dispatch"):
+            self._advance_prefills()
+            active = [(slot, s) for slot, s in enumerate(self._slots)
+                      if s is not None and s.active and not s.done]
+            # nothing to decode, or a step that would be thrown away whole
+            # (every stream has its budget dispatched): the caller collects
+            if all(self._host_frames[slot] >= s.max_frames
+                   for slot, s in active):
+                return None
+            chunk = self._pick_chunk(active)
+            steps = chunk // self.fps  # cache positions a dispatch advances
+            S = self.cfg.max_seq_len
+            size = self.B // self.n_groups
+            wins = tuple(
+                generate.attn_bucket(
+                    max((self._host_pos[slot] for slot, _ in active
+                         if slot // size == g), default=0) + steps, S)
+                for g in range(self.n_groups))
+            fn = self._decode_fn(chunk, wins)
+            frames_before = self.frames_dev
+            if self.feedback:
+                (_, _, self.cstate, self.pos, self.tok, self.frames_dev,
+                 self.res_sum, self.trail_g, n_valid, codes, wav) = fn(
+                    self.params, self.cp_params, self.codec_params,
+                    self.cache_k, self.cache_v, self.cstate, self.trail,
+                    self.pos, self.pad,
+                    self.frames_dev, self.tok, self.res_sum, self.trail_g,
+                    self.rng, active=self.active_mask)
+            else:
+                (_, _, self.cstate, self.pos, self.tok, self.frames_dev,
+                 n_valid, codes, wav) = fn(
+                    self.params, self.cp_params, self.codec_params,
+                    self.cache_k, self.cache_v, self.cstate, self.pos,
+                    self.pad, self.frames_dev, self.tok, self.rng,
+                    active=self.active_mask)
+            n_valid = n_valid.to(torch.int32)
+            if self.accum:
+                self._accum_write(wav, frames_before, chunk)
+                fetch, codes, wav = n_valid, None, None
+            elif _defer_wav():
+                fetch = n_valid
+                codes = _HostCopy(codes, start=False)
+                wav = _HostCopy(wav, start=False)
+            else:  # one packed read: valid counts, codes, PCM
+                fetch = torch.cat([n_valid,
+                                   codes.reshape(-1).to(torch.int32),
+                                   wav.reshape(-1).to(torch.int32)])
+                codes = wav = None
+            for slot, _ in active:
+                self._host_pos[slot] += steps
+                self._host_frames[slot] += chunk
+            snapshot = [(slot, s.stream_id) for slot, s in active]
+            return (snapshot, chunk, _HostCopy(fetch, _async_fetch()), codes,
+                    wav)
 
     def _accum_write(self, wav, frames_before, chunk: int) -> None:
         """Write one step's [B, chunk*hop] PCM into the accumulation buffer
@@ -610,78 +617,84 @@ class ServingEngine:
         the ids of the streams that finished."""
         if payload is None:
             return []
-        snapshot, chunk, fetch, codes_copy, wav_copy = payload
-        B = self.B
-        cfg = self.cfg
-        hop = cfg.codec.hop
-        packed = fetch.numpy()
-        valid_host = packed[:B]
-        codes_host = wav_host = None
-        if codes_copy is None and not self.accum:
-            n_codes = B * cfg.codec.num_codebooks * chunk
-            codes_host = packed[B:B + n_codes].reshape(B, -1, chunk)
-            wav_host = packed[B + n_codes:].reshape(B, chunk * hop).astype(
-                np.int16)
-        startup_all = (cfg.code2wav.startup_samples
-                       if cfg.codec_arch == "code2wav" else 0)
+        with trace("qwen3_tts.engine.collect"):
+            snapshot, chunk, fetch, codes_copy, wav_copy = payload
+            B = self.B
+            cfg = self.cfg
+            hop = cfg.codec.hop
+            with trace("qwen3_tts.engine.host_wait"):
+                packed = fetch.numpy()
+            valid_host = packed[:B]
+            codes_host = wav_host = None
+            if codes_copy is None and not self.accum:
+                n_codes = B * cfg.codec.num_codebooks * chunk
+                codes_host = packed[B:B + n_codes].reshape(B, -1, chunk)
+                wav_host = packed[B + n_codes:].reshape(
+                    B, chunk * hop).astype(np.int16)
+            startup_all = (cfg.code2wav.startup_samples
+                           if cfg.codec_arch == "code2wav" else 0)
 
-        for slot, stream_id in snapshot:
-            stream = self.streams.get(stream_id)
-            if stream is None or stream.done or self._slots[slot] is not stream:
-                continue  # the slot was freed or recycled since dispatch
-            valid = int(valid_host[slot])
-            remaining = stream.max_frames - stream.frames
-            done = valid < chunk or valid >= remaining
-            valid = min(valid, remaining)
-            if self.accum:
+            for slot, stream_id in snapshot:
+                stream = self.streams.get(stream_id)
+                if (stream is None or stream.done
+                        or self._slots[slot] is not stream):
+                    continue  # the slot was freed or recycled since dispatch
+                valid = int(valid_host[slot])
+                remaining = stream.max_frames - stream.frames
+                done = valid < chunk or valid >= remaining
+                valid = min(valid, remaining)
+                if self.accum:
+                    if valid > 0:
+                        stream.frames += valid
+                        if stream.ttfa_s is None:  # first audio on the card
+                            stream.ttfa_s = (time.perf_counter()
+                                             - stream.submitted_at)
+                    if done:
+                        # copy the row out now (a later occupant overwrites
+                        # it); read it at collect()
+                        stream.wav_chunks = [_AccumRow(
+                            _HostCopy(self.wav_accum[slot].clone(), True),
+                            startup_all, stream.frames * hop)]
+                        stream.done = True
+                        stream.active = False
+                    continue
                 if valid > 0:
+                    # code2wav: a stream's first chunk leads with the
+                    # decoder's run-in (< one frame of samples), dropped
+                    startup = startup_all if stream.frames == 0 else 0
+                    stream.codes.append(
+                        codes_host[slot][:, :valid] if codes_host is not None
+                        else _DeferredCodes(codes_copy, slot, valid))
+                    chunk_wav = None
+                    if wav_host is not None:
+                        chunk_wav = stream_wav = wav_host[
+                            slot, startup:valid * hop]
+                    elif stream.ttfa_s is None or stream.on_chunk is not None:
+                        # first audible chunk (TTFA is audio on the host)
+                        # or a streaming consumer: this step's PCM read now
+                        chunk_wav = stream_wav = (
+                            wav_copy.numpy()[slot, startup:valid * hop])
+                    else:
+                        stream_wav = _DeferredWav(wav_copy, slot, startup,
+                                                  valid * hop - startup)
+                    stream.wav_chunks.append(stream_wav)
                     stream.frames += valid
-                    if stream.ttfa_s is None:  # first audio on the card
-                        stream.ttfa_s = time.perf_counter() - stream.submitted_at
+                    if stream.ttfa_s is None:
+                        stream.ttfa_s = (time.perf_counter()
+                                         - stream.submitted_at)
+                    if stream.on_chunk is not None:
+                        stream.on_chunk(chunk_wav)
                 if done:
-                    # copy the row out now (a later occupant overwrites
-                    # it); read it at collect()
-                    stream.wav_chunks = [_AccumRow(
-                        _HostCopy(self.wav_accum[slot].clone(), True),
-                        startup_all, stream.frames * hop)]
                     stream.done = True
                     stream.active = False
-                continue
-            if valid > 0:
-                # code2wav: a stream's first chunk leads with the decoder's
-                # run-in (< one frame of samples), dropped
-                startup = startup_all if stream.frames == 0 else 0
-                stream.codes.append(
-                    codes_host[slot][:, :valid] if codes_host is not None
-                    else _DeferredCodes(codes_copy, slot, valid))
-                chunk_wav = None
-                if wav_host is not None:
-                    chunk_wav = stream_wav = wav_host[slot, startup:valid * hop]
-                elif stream.ttfa_s is None or stream.on_chunk is not None:
-                    # first audible chunk (TTFA is audio on the host) or a
-                    # streaming consumer: this step's PCM read now
-                    chunk_wav = stream_wav = (
-                        wav_copy.numpy()[slot, startup:valid * hop])
-                else:
-                    stream_wav = _DeferredWav(wav_copy, slot, startup,
-                                              valid * hop - startup)
-                stream.wav_chunks.append(stream_wav)
-                stream.frames += valid
-                if stream.ttfa_s is None:
-                    stream.ttfa_s = time.perf_counter() - stream.submitted_at
-                if stream.on_chunk is not None:
-                    stream.on_chunk(chunk_wav)
-            if done:
-                stream.done = True
-                stream.active = False
 
-        finished = []
-        for slot, stream in enumerate(self._slots):
-            if stream is not None and stream.done:
-                finished.append(stream.stream_id)
-                self._slots[slot] = None
-                self.active_mask[slot] = False
-        return finished
+            finished = []
+            for slot, stream in enumerate(self._slots):
+                if stream is not None and stream.done:
+                    finished.append(stream.stream_id)
+                    self._slots[slot] = None
+                    self.active_mask[slot] = False
+            return finished
 
     def cancel(self, stream_id: int) -> None:
         """Abort a stream: free its slot, stop its decode row and drop any

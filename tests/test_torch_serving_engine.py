@@ -121,6 +121,54 @@ def test_midflight_join_leaves_other_streams_token_identical(fixture, request):
     _assert_same(eng.collect(b), rb)
 
 
+def _spans(prof) -> dict:
+    """name -> [(start, end)] of the program's spans in a profile."""
+    out: dict = {}
+    for e in prof.kineto_results.events():
+        if e.name().startswith("qwen3_tts."):
+            assert not e.is_user_annotation(), e.name()
+            s = e.start_ns()
+            out.setdefault(e.name()[len("qwen3_tts."):], []).append(
+                (s, s + e.duration_ns()))
+    return out
+
+
+def _inside(iv, outer) -> bool:
+    return any(a <= iv[0] and iv[1] <= b for a, b in outer)
+
+
+@pytest.mark.parametrize("fixture", ["model", "fb_model"],
+                         ids=["rvq", "residual_sum_code2wav"])
+def test_a_profiled_step_records_every_decode_span(fixture, request):
+    """One profiled step of 4 frames opens the decode path's spans: a
+    talker pass a frame-step, the code predictor a frame-step (residual_sum,
+    inside the loop) or once for the chunk (cb0), code2wav once, all inside
+    the dispatch; attention inside the talker and the predictor (and the
+    codec's transformer); the host wait inside the collection."""
+    m = request.getfixturevalue(fixture)
+    eng = ServingEngine(m, max_streams=2, chunk=4, sampling=GREEDY)
+    sid = eng.submit(_prompt(2), max_frames=40)
+    eng.step()  # the prefill and the first step
+    with torch.autograd.profiler.profile(use_kineto=True) as prof:
+        eng.step()
+    assert not eng.streams[sid].done
+    sp = _spans(prof)
+    rvq = fixture == "model"
+    assert {k: len(v) for k, v in sp.items() if k != "model.attention"} == {
+        "engine.dispatch": 1, "engine.collect": 1, "engine.host_wait": 1,
+        "model.talker": 4, "model.predictor": 1 if rvq else 4,
+        "model.code2wav": 1}
+    for name in ("model.talker", "model.predictor", "model.code2wav"):
+        assert all(_inside(iv, sp["engine.dispatch"]) for iv in sp[name])
+    assert all(_inside(iv, sp["engine.collect"])
+               for iv in sp["engine.host_wait"])
+    attn = sp["model.attention"]
+    model = sp["model.talker"] + sp["model.predictor"] + sp["model.code2wav"]
+    assert all(_inside(iv, model) for iv in attn)
+    assert any(_inside(iv, sp["model.talker"]) for iv in attn)
+    assert any(_inside(iv, sp["model.predictor"]) for iv in attn)
+
+
 def test_slots_recycle_and_a_recycled_slot_equals_a_fresh_engine(model):
     """Five prompts through two slots all finish, in slots 0 and 1, each
     with the output of a fresh engine serving it alone."""

@@ -380,6 +380,12 @@ DEPARTED = {
         "**The kernel follows the tensor's device.**",
     "ops/__init__.py::use_pallas":
         "**The kernel follows the tensor's device.**",
+    "profiling.py::StageTimer": "**No `StageTimer` and no `profile_to`.**",
+    "profiling.py::StageTimer.stage":
+        "**No `StageTimer` and no `profile_to`.**",
+    "profiling.py::StageTimer.summary":
+        "**No `StageTimer` and no `profile_to`.**",
+    "profiling.py::profile_to": "**No `StageTimer` and no `profile_to`.**",
 }
 
 

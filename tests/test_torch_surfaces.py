@@ -1,10 +1,11 @@
 """The port's surfaces beside the engine, against the JAX package where it
 has a counterpart: the WSOLA time stretch and generate_audio's speed
-contract, the emit_metrics line, profiling, the ASR provider registry and
-its backend knob, the decode-quality harness, the device lock, the voice
-library over HTTP on a cloning model, and the serving, batch,
-transcription and Whisper modules with jax, transformers, safetensors,
-ml_dtypes, rich and prompt_toolkit blocked (as on the GPU machine)."""
+contract, the emit_metrics line, the spans of ``profiling.trace``, the
+ASR provider registry and its backend knob, the decode-quality harness,
+the device lock, the voice library over HTTP on a cloning model, and the
+serving, batch, transcription and Whisper modules with jax, transformers,
+safetensors, ml_dtypes, rich and prompt_toolkit blocked (as on the GPU
+machine)."""
 
 import base64
 import json
@@ -130,27 +131,50 @@ def test_generate_audio_speed_matches_jax_and_emits_its_metrics_line(
 
 # -- profiling ----------------------------------------------------------------
 
-def test_stage_timer_trace_and_profile(temp_dir):
-    timer = profiling.StageTimer(sync=True)
-    with timer.stage("a"):
-        sum(range(1000))
-    with timer.stage("a"):
-        pass
-    with timer.stage("b"):
-        pass
-    s = timer.summary()
-    assert s["a"]["calls"] == 2 and s["b"]["calls"] == 1
-    assert s["a"]["total_s"] >= 0
-    with profiling.trace("outside_a_profile"):
-        assert np.ones(3).sum() == 3
-    with profiling.profile_to(temp_dir) as prof:
-        with profiling.trace("labelled_region"):
+class _NoEnviron(dict):
+    """An ``os.environ`` that fails every read."""
+
+    def _fail(self, *args, **kwargs):
+        raise AssertionError("the environment was read")
+
+    __getitem__ = __contains__ = get = _fail
+
+
+def test_trace_without_a_profiler_is_one_shared_no_op(monkeypatch):
+    """With no profiler recording, a span makes no RecordFunction, reads
+    no environment variable and is the same shared object every time."""
+    def no_record_function(*args, **kwargs):
+        raise AssertionError("a RecordFunction was made")
+
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", no_record_function)
+    with monkeypatch.context() as m:
+        m.setattr(os, "environ", _NoEnviron())
+        first = profiling.trace("qwen3_tts.engine.dispatch")
+        with first:
+            with profiling.trace("qwen3_tts.model.talker") as inner:
+                assert inner is None
+        second = profiling.trace("qwen3_tts.model.attention")
+    assert first is second
+
+
+def test_a_span_under_the_profiler_is_a_host_op_of_no_user_scope():
+    """Under the profiler a span is recorded as a host operation that is
+    no user annotation (a ``record_function`` range is one, and leaves a
+    shadow on the device's timeline), around the work inside it; once the
+    profiler stops, spans are the no-op again."""
+    with torch.autograd.profiler.profile(use_kineto=True) as prof:
+        with profiling.trace("qwen3_tts.test.span"):
             torch.ones(8).sum()
-    names = {e.key for e in prof.key_averages()}
-    assert "labelled_region" in names
-    trace = json.loads(open(os.path.join(temp_dir, "trace.json")).read())
-    assert any(ev.get("name") == "labelled_region"
-               for ev in trace["traceEvents"])
+        with torch.profiler.record_function("user_scope"):
+            pass
+    events = {e.name(): e for e in prof.kineto_results.events()}
+    span, user = events["qwen3_tts.test.span"], events["user_scope"]
+    assert span.device_type() == torch.autograd.DeviceType.CPU
+    assert not span.is_user_annotation() and user.is_user_annotation()
+    s0, s1 = span.start_ns(), span.start_ns() + span.duration_ns()
+    inner = [e for e in events.values() if e.name() == "aten::ones"]
+    assert inner and all(s0 <= e.start_ns() <= s1 for e in inner)
+    assert profiling.trace("a") is profiling.trace("b")
 
 
 # -- the ASR provider registry --------------------------------------------------
