@@ -31,7 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bound at the float32 CUDA-core rate (67 TFLOP/s); timed only at
    6144x2048 (A at 1/8/32/64 rows, B at 1/32/128) and at the 512-row
    shard, the plain version and the library at M=1 and at B's 128 and
-   512 rows;
+   512 rows; then kernel C (decode attention, ``layers._attend_kernel``)
+   against attention's plain code (``layers._attend_plain``) at ATTN_CASES
+   (the talker's decode at 64 rows over 512, 1024 and 2048 keys, 1024
+   also in two window groups, and the code predictor's two passes): the
+   path choice must take it, the context within 1e-2 of the plain code's
+   range, the written cache rows within one bf16 ulp of the plain code's,
+   every other row untouched, two launches bit-identical; kernel and plain
+   code timed beside the bytes bound (the keys each row reads, q/k/v, the
+   rows written and the context, over 3.35 TB/s);
 3. a tiny model on the card (kernels) against the same model on the CPU
    (plain versions), under both int8 layouts: in bf16, prefill logits
    within tolerance and the greedy codes' agreement printed; in float32,
@@ -45,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. the main path at the flagship's full width, grouped int8 layout:
    load_model("synthetic:flagship") -> generate_audio -> audio_000.wav,
    checked (mono 16-bit 24 kHz, frames x hop samples, finite, not
-   silent) with kernel A's launches counted; every main path's prompt
+   silent) with kernel A's and kernel C's launches counted (a bf16 path
+   must launch kernel C, and the calls of its kind it declined are held
+   to 0 at the end of the script); every main path's prompt
    must assemble from its plan (``assembly``, with the host's
    milliseconds for it, and the stream's ``pipeline_depth`` printed
    beside TTFA and RTF);
@@ -83,14 +93,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (a bf16 run prints its agreement only); then
    configs.flagship_feedback_code2wav() at full width, eight streams (eight
    sentences and voices) of 36 frames after one warm run: aggregate RTF,
-   TTFA p50/max, kernel A's launches per step and per frame, the shapes
-   it ran, peak memory, every WAV checked, and the cold batch's
+   TTFA p50/max, kernel A's launches per step and per frame, kernel C's
+   launches (it must run) and declined calls, the shapes they ran, peak memory, every WAV checked, and the cold batch's
    assemble_plans_batched and assemble_from_plan calls (every prompt must
    assemble in a batched call); then a generate_audio call of at
    least three segments, which goes through the same engine;
-9. every (M, N, K, gs) a kernel ran on the main paths, in serving and in
-   cloning that phase 2 did not cover is held against its plain version
-   the same way (the wrappers record the shapes of their launches);
+9. every shape a kernel ran on the main paths, in serving, in the server
+   and in cloning that phase 2 did not cover ((M, N, K, gs) for A and B;
+   kernel C's ``dims``) is held against its plain version the same way
+   (the wrappers record the shapes of their launches);
 10. the int8 KV cache (QWEN3_TTS_KV=int8): in phase 3, a tiny float32
    model's greedy codes on the card must equal the CPU's, and the int8
    serving engine's (four streams, one joining mid-flight) must equal int8
@@ -129,7 +140,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one of them at speed 1.25, one OpenAI /v1/audio/speech), client-side
    TTFA p50/max (first body byte of a stream), aggregate RTF over the
    responses' audio beside the serving phase's ServingEngine.run, kernel
-   A launches a frame, peak memory; a streaming client dropped after its
+   A launches a frame, kernel C's launches (it must run), peak memory; a streaming client dropped after its
    first chunk, whose slot must free; /healthz, /v1/models and /metrics
    with the request and error counters checked; step ``batch``: run_batch
    over BATCH_ITEMS items through the same service;
@@ -144,8 +155,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel A), 64 frames through generate_audio with mtp_cp_batch off and
    on: RTF, TTFA, peak memory and kernel A launches a frame beside the
    fps=1 main path's from phase 6;
-15. phase ``train`` (training/, finetune.py; dense, so neither kernel
-   runs: their launch counts are printed, 0 required). Step
+15. phase ``train`` (training/, finetune.py; dense, so neither int8
+   kernel runs: their launch counts are printed, 0 required; kernel C
+   runs in the exports' bf16 decodes). Step
    ``reference``: tiny float32 trees from the numpy initialisers, three
    default_optimizer steps on one synthetic batch on the card and on the
    CPU (cb0 with speakers and left padding, residual_sum, fps 2 with
@@ -231,7 +243,8 @@ Float rules: TF32 off for matmuls and cuDNN convolutions, and no reduced
 precision reductions in bf16 matmuls.
 
 Output: one line per shape and phase (each with ``t_s``, the script's
-seconds so far), then a ``{"kernels": [...]}`` line,
+seconds so far), then a ``{"kernels": [...]}`` line (the script fails
+after it if kernel C declined a call of its kind on a bf16 path),
 the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -294,6 +307,22 @@ F32_YARDSTICK_ROWS = {"grouped_qmv": (1,), "dequant_matmul": (1, 128, 512)}
 TALKER_FRAME = {(2048, 2048): 56, (1024, 2048): 56, (6144, 2048): 56,
                 (2048, 6144): 28, (2051, 2048): 1}
 MAIN_FRAMES = 64  # frames of the measured main-path run
+INT8_KERNELS = ("grouped_qmv", "dequant_matmul")  # kernels A and B
+ATTN = "decode_attention"  # kernel C; its shapes name (B, T, heads,
+# kv_heads, window, qk_norm, row_pos, split): the talker's decode at the
+# serving engine's 64 rows over windows of 512, 1024 and 2048 keys (1024
+# also in two window groups), and the code predictor's seed and later
+# passes over its 17-row cache
+ATTN_ROWS = 64
+ATTN_CASES = tuple((ATTN, ATTN_ROWS, 1, 16, 8, w, 1, 1, 0)
+                   for w in (512, 1024, 2048)) + (
+    (ATTN, ATTN_ROWS, 1, 16, 8, 1024, 1, 1, 1),
+    (ATTN, ATTN_ROWS, 2, 8, 8, 17, 0, 0, 0),
+    (ATTN, ATTN_ROWS, 1, 8, 8, 17, 0, 0, 0))
+ATTN_REPRESENTATIVE = ATTN_CASES[1]  # reported in the kernels line
+# the calls of kernel C's kind that it declined, by bf16 main path and
+# measured run; held to 0 at the end of the script
+ATTN_DECLINED: dict[str, int] = {}
 # cuts for the script's budget (400 s until phase train_parallel, 600 s
 # since; phase train added ~40 s): the imported
 # snapshot's main path repeats flagship_feedback_code2wav's geometry, the
@@ -389,7 +418,7 @@ def planned_cases() -> list[tuple]:
     cb0 code predictor's decode chunks of a MAIN_FRAMES-frame utterance,
     and the prefill rows (A up to its 64-row limit, B the 128-row prompt
     bucket) -- the feedback predictor's 2-row first pass on kernel A, and
-    one tiny shape with a ragged N and gs=16."""
+    one tiny shape with a ragged N and gs=16; then kernel C's ATTN_CASES."""
     from qwen3_tts_tpu_torch.engine import configs
     from qwen3_tts_tpu_torch.runtime.generate import (
         chunk_plan, default_chunk_schedule,
@@ -404,7 +433,8 @@ def planned_cases() -> list[tuple]:
     cases += [("grouped_qmv", m, n, k, GS) for n, k in FEEDBACK_CP_NK
               for m in FEEDBACK_CP_ROWS if m not in rows["grouped_qmv"]]
     n, k, gs = TINY
-    return cases + [("grouped_qmv", 3, n, k, gs), ("dequant_matmul", 3, n, k, gs)]
+    return cases + [("grouped_qmv", 3, n, k, gs),
+                    ("dequant_matmul", 3, n, k, gs), *ATTN_CASES]
 
 
 def f32_cases() -> list[tuple]:
@@ -437,7 +467,8 @@ def phase_kernels(torch, cases, checked: dict, source: str,
     ``timed=False``: the check alone (one weight copy, no times). The
     plain version and the library are timed only where the kernels line
     and frame_sum read them, a talker frame's shapes at M=1 (float32:
-    F32_YARDSTICK_ROWS), for the script's budget."""
+    F32_YARDSTICK_ROWS), for the script's budget. Kernel C's cases (bf16
+    only) go to phase_attention."""
     from qwen3_tts_tpu_torch.ops.dequant_matmul import (
         dequant_matmul_cuda, dense_matmul, plan_kernel_b, plan_kernel_b_f32,
         quantized_matmul_ref,
@@ -448,6 +479,10 @@ def phase_kernels(torch, cases, checked: dict, source: str,
     )
     from qwen3_tts_tpu_torch.ops.quant import dequantize
 
+    attn = [c for c in cases if c[0] == ATTN]
+    if attn:
+        phase_attention(torch, attn, checked, source)
+    cases = [c for c in cases if c[0] != ATTN]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(len(checked))
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -525,6 +560,158 @@ def phase_kernels(torch, cases, checked: dict, source: str,
     torch.cuda.empty_cache()
 
 
+def attention_case(torch, case: tuple, gen, dev, copies: int = 1):
+    """Kernel C's inputs for one (ATTN, B, T, heads, kv_heads, window,
+    qk_norm, row_pos, split) case: random bf16 q/k/v and caches of
+    ``window`` rows (``copies`` sets of them), norm weights near 1, and the
+    positions: with row_pos, even rows at the window's end (they read all
+    its keys) and odd rows anywhere in it, some of them padded; else one
+    int pos at the end; with split, the first half of the rows in a window
+    half as wide (their queries past it, as a stale slot's). Returns
+    (p, sets of (q, k, v, cache_k, cache_v), attention's keyword arguments,
+    the bytes a call must move)."""
+    from qwen3_tts_tpu_torch.models.layers import (
+        WindowSplit, rope_slice, rope_tables,
+    )
+
+    _, B, T, H, Hkv, W, qk_norm, row_pos, split = case
+    hd, bf = 128, torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    p = {"q_norm": rnd(hd, scale=0.2) + 1, "k_norm": rnd(hd, scale=0.2) + 1}
+    sets = [(rnd(B, T, H * hd), rnd(B, T, Hkv * hd, scale=2.0),
+             rnd(B, T, Hkv * hd), rnd(B, W, Hkv, hd), rnd(B, W, Hkv, hd))
+            for _ in range(copies)]
+    if row_pos:
+        pos = [W - T if b % 2 == 0 else (b * 37) % (W - T + 1)
+               for b in range(B)]
+        pad = [0 if b % 2 == 0 else min(b % 5, pos[b]) for b in range(B)]
+        pos_arg, pad_arg = (torch.tensor(x, dtype=torch.int64, device=dev)
+                            for x in (pos, pad))
+    else:
+        pos, pad = [W - T] * B, [0] * B
+        pos_arg, pad_arg = W - T, 0
+    # a WindowSplit, as the serving engine's: its row table made once
+    split_arg = (WindowSplit(((B // 2, W // 2), (B - B // 2, W))) if split
+                 else None)
+    wins = [w for n, w in split_arg for _ in range(n)] if split else [W] * B
+    cos_t, sin_t = rope_tables(W, hd, 1e6, dev)
+    cos, sin = rope_slice(cos_t, sin_t, pos_arg, T)
+    kw = dict(cos=cos, sin=sin, pos=pos_arg, n_heads=H, n_kv_heads=Hkv,
+              head_dim=hd, rms_eps=1e-6, qk_norm=bool(qk_norm),
+              pad_len=pad_arg, window_split=split_arg, out_dtype=bf)
+    # the keys each row reads (the kernel's range): from min(pos, pad) to
+    # the last query's position or the row's window, k and v rows of each
+    keys = sum(max(0, min(q + T, w) - min(q, d))
+               for q, d, w in zip(pos, pad, wins))
+    nbytes = 2 * (2 * keys * Hkv * hd                  # k, v rows read
+                  + B * T * (H + 2 * Hkv) * hd         # q, k, v read
+                  + 2 * B * T * Hkv * hd               # rows written
+                  + B * T * H * hd) \
+        + 4 * cos.numel() * 2                          # cos, sin (f32)
+    return p, sets, kw, nbytes
+
+
+def phase_attention(torch, cases, checked: dict, source: str) -> None:
+    """Hold kernel C (``layers._attend_kernel``) against attention's plain
+    code (``layers._attend_plain``) on the card for each case: the path
+    choice must take the kernel; the context within TOL of the plain
+    code's range; the written cache rows within one bf16 ulp of the plain
+    code's, every other row untouched; two launches bit-identical. Then
+    kernel and plain code timed (device time, inputs rotated over copies
+    larger than the L2) beside the bytes bound at 3.35 TB/s; rows go into
+    ``checked`` keyed by case."""
+    from qwen3_tts_tpu_torch.models.layers import (
+        _attend_kernel, _attend_plain, _takes_decode_kernel,
+    )
+    from qwen3_tts_tpu_torch.ops.cuda_kernels import DECODE_ATTENTION
+
+    dims = DECODE_ATTENTION.dims
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(len(checked))
+    for case in cases:
+        _, B, T, H, Hkv, W, qk_norm, row_pos, split = case
+        where = f"{ATTN} " + ",".join(
+            f"{d}={v}" for d, v in zip(dims, case[1:]))
+        per_copy = 4 * B * W * Hkv * 128
+        copies = max(1, min(32, math.ceil(128e6 / per_copy)))
+        p, sets, kw, nbytes = attention_case(torch, case, gen, dev, copies)
+        q, k, v, ck, cv = sets[0]
+        norms = (p["q_norm"], p["k_norm"]) if qk_norm else ()
+        if not _takes_decode_kernel(q, k, v, norms, ck, cv, kw["pos"],
+                                    kw["pad_len"], kw["window_split"], H,
+                                    Hkv, 128, None):
+            fail(f"{where}: the path choice does not take the kernel")
+        plain_cache = [ck.clone(), cv.clone()]
+        want = _attend_plain(p, q, k, v, cache_k=plain_cache[0],
+                             cache_v=plain_cache[1], **kw)
+        outs, caches = [], []
+        for _ in range(2):
+            kc = [ck.clone(), cv.clone()]
+            outs.append(_attend_kernel(p, q, k, v, cache_k=kc[0],
+                                       cache_v=kc[1], **kw))
+            caches.append(kc)
+        torch.cuda.synchronize()
+        got = outs[0]
+        err = (got.float() - want.float()).abs().max().item()
+        scale_ref = want.float().abs().max().item()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not math.isfinite(err) or err > TOL * scale_ref:
+            fail(f"{where}: max|kernel-plain| {err} > {TOL} * {scale_ref} "
+                 f"(or shape/dtype {tuple(got.shape)} {got.dtype})")
+        if not (torch.equal(outs[0], outs[1]) and all(
+                torch.equal(a, b) for a, b in zip(*caches))):
+            fail(f"{where}: two launches on the same inputs differ")
+        pos = kw["pos"]
+        start = (pos.clamp(0, W - T) if isinstance(pos, torch.Tensor)
+                 else torch.full((B,), min(max(pos, 0), W - T), device=dev))
+        rows = torch.arange(W, device=dev)[None, :]
+        written = (rows >= start[:, None]) & (rows < start[:, None] + T)
+        for got_c, want_c, old in zip(caches[0], plain_cache, (ck, cv)):
+            a, b = got_c[written].float(), want_c[written].float()
+            _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+            if not torch.equal(got_c[~written], old[~written]) or not bool(
+                    ((a - b).abs() <= torch.ldexp(torch.ones_like(a), e - 8))
+                    .all()):
+                fail(f"{where}: the cache rows written differ from the plain "
+                     "code's by more than one bf16 ulp, or another row moved")
+
+        def kern(q, k, v, ck, cv):
+            return _attend_kernel(p, q, k, v, cache_k=ck, cache_v=cv, **kw)
+
+        def plain(q, k, v, ck, cv):
+            return _attend_plain(p, q, k, v, cache_k=ck, cache_v=cv, **kw)
+
+        kernel_ms = device_time_ms(torch, kern, sets)
+        plain_ms = device_time_ms(torch, plain, sets)
+        t_bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        row = {"phase": "kernels", "shapes_from": source, "kernel": ATTN,
+               "dtype": "bfloat16", **dict(zip(dims, case[1:])),
+               "max_abs_err": err, "max_abs_plain": scale_ref,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": t_bound, "bound_by": "bytes",
+               "bound_share": t_bound / kernel_ms, "bytes": nbytes}
+        log(row)
+        checked[case] = row
+        del sets, caches, plain_cache
+    torch.cuda.empty_cache()
+
+
+def kernel_c_ran(where: str, counts: dict) -> int:
+    """Kernel C on a measured bf16 run over dense caches: fails unless it
+    launched; keeps the calls of its kind it declined there (ATTN_DECLINED,
+    held to 0 once every phase ran) and returns them. Read right after the
+    run, before anything else calls attention."""
+    from qwen3_tts_tpu_torch.ops.cuda_kernels import DECODE_ATTENTION
+
+    ATTN_DECLINED[where] = DECODE_ATTENTION.declined
+    if counts[ATTN] == 0:
+        fail(f"{where}: kernel C ({ATTN}) never launched on a bf16 path")
+    return ATTN_DECLINED[where]
+
+
 def phase_frame_sum(checked: dict) -> None:
     """Each kernel's time, bound and library time summed over one talker
     frame at M=1 (TALKER_FRAME), in ms."""
@@ -588,7 +775,7 @@ def main() -> None:
                 + train_par_counts[name] for name in launches}
     # the float32 instances: the reference phase's and phase parallel's
     # float32 steps, each counted from 0
-    f32_launches = {name: ref_f32[name] + par_f32[name] for name in launches}
+    f32_launches = {name: ref_f32[name] + par_f32[name] for name in ref_f32}
     log({"phase": "f32_launches", "reference": ref_f32, "parallel": par_f32,
          "total": f32_launches})
     # every shape the main paths and serving ran is held against its plain
@@ -626,7 +813,26 @@ def main() -> None:
                 "library_ms", "bound_share")},
                 "launches": f32_launches[name]},
         })
+    from qwen3_tts_tpu_torch.ops import cuda_kernels
+
+    r = checked[ATTN_REPRESENTATIVE]
+    kernels.append({
+        "name": ATTN, "route": "cuda",
+        "source": f"src/qwen3_tts_tpu_torch/csrc/{ATTN}.cu",
+        "replaces": "src/qwen3_tts_tpu/models/layers.py::attention (plain "
+                    "code between the projections; no TPU kernel)",
+        "launches": launches[ATTN],
+        "declined": sum(ATTN_DECLINED.values()),
+        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "shape": ",".join(f"{d}={v}" for d, v in zip(
+            cuda_kernels.DECODE_ATTENTION.dims, ATTN_REPRESENTATIVE[1:])),
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
+    if any(ATTN_DECLINED.values()):
+        fail(f"kernel C declined calls of its kind on bf16 paths: "
+             f"{ATTN_DECLINED}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -717,7 +923,8 @@ def phase_reference(torch) -> dict:
     phase_reference_import(torch)
     phase_reference_kv_int8(torch)
     phase_reference_clone(torch)
-    counts = {k.name: k.by_dtype["float32"] for k in cuda_kernels.KERNELS}
+    counts = {k.name: k.by_dtype["float32"] for k in cuda_kernels.KERNELS
+              if "float32" in k.by_dtype}
     if not all(counts.values()):
         fail(f"reference: a float32 instance never launched: {counts}")
     return counts
@@ -1058,7 +1265,8 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
     """The model ``label`` (or ``model``, already loaded) at full width ->
     generate_audio under one int8 layout; returns every kernel's launches in
     the measured run, the (M, N, K, gs) shapes each ran there, and its
-    numbers (RTF, TTFA, peak memory, kernel A launches a frame)."""
+    numbers (RTF, TTFA, peak memory, kernel A launches a frame). A bf16
+    model must run kernel C (kernel_c_ran)."""
     import numpy as np
 
     from qwen3_tts_tpu_torch.engine import generate_audio
@@ -1083,6 +1291,8 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
         shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        declined = (kernel_c_ran(f"main_path {where}", counts)
+                    if model.cfg.dtype == "bfloat16" else None)
         path = os.path.join(out, "audio_000.wav")
         if not os.path.exists(path):
             fail(f"{where}: {path} was not written")
@@ -1129,6 +1339,7 @@ def phase_main_path(torch, label: str, layout: str, kernel: str,
          "launches": counts,
          "launches_per_frame": {name: c / m["frames"]
                                 for name, c in counts.items()},
+         "decode_attention_declined": declined,
          "shapes": {name: sorted(run) for name, run in shapes.items()}})
     del model
     torch.cuda.empty_cache()
@@ -1748,7 +1959,7 @@ def phase_app(torch) -> tuple[dict, dict]:
 def phase_main_paths(torch, snapshot) -> tuple[dict, dict, dict]:
     """Every main path and the imported checkpoint's; returns each
     kernel's launches on the flagship's main path under its layout (the
-    first path that runs it), the shapes each kernel ran on any path, and
+    first path that runs it; kernel C's on the first path), the shapes each kernel ran on any path, and
     each path's numbers (phase_main_path)."""
     launches: dict = {}
     shapes: dict = {}
@@ -1757,6 +1968,7 @@ def phase_main_paths(torch, snapshot) -> tuple[dict, dict, dict]:
         counts, ran, runs[label] = phase_main_path(torch, label, layout,
                                                    kernel, frames)
         launches.setdefault(kernel, counts[kernel])
+        launches.setdefault(ATTN, counts[ATTN])
         for name, run in ran.items():
             shapes.setdefault(name, set()).update(run)
     # the imported checkpoint's path: its shapes join the coverage check
@@ -2047,10 +2259,11 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
               for i in range(SERVING_STREAMS)]
     prompts = [prepare_segments(model, text, voice=voice)[0][0]
                for text, voice in zip(SERVING_TEXTS, voices)]
-    def measured(engine):
+    def measured(engine, step):
         """One warm run of the eight prompts, then the measured one, its
         sampling seeded alike in every step; returns the results, the
-        step's numbers (every WAV checked), kernel launches and shapes."""
+        step's numbers (every WAV checked), kernel launches and shapes.
+        Over dense caches kernel C must run (kernel_c_ran)."""
         engine.run(prompts, max_frames=16)  # warm: allocator, first launches
         dispatch = engine.dispatch_step
         steps = []
@@ -2085,6 +2298,9 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
         wall = time.perf_counter() - t0
         counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
         shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        declined = (cuda_kernels.DECODE_ATTENTION.declined
+                    if isinstance(engine.cache_k, KVQuant)
+                    else kernel_c_ran(f"serving {step}", counts))
         peak = torch.cuda.max_memory_allocated() / 1e9
         del engine.dispatch_step  # the class's method again
         del gen.assemble_plans_batched, gen.assemble_from_plan
@@ -2092,10 +2308,11 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
             fail(f"serving: {assembled} assembled, not the {len(prompts)} "
                  "cold prompts in batched calls")
         row = _serving_step_row(results, wall, peak, counts, sum(steps), cfg)
-        return results, {**row, "assembly": assembled}, counts, shapes
+        return results, {**row, "assembly": assembled,
+                         "decode_attention_declined": declined}, counts, shapes
 
     engine = model.serving_engine(SERVING_STREAMS)
-    results, dense, counts, shapes = measured(engine)
+    results, dense, counts, shapes = measured(engine, "flagship")
     log({"phase": "serving", "step": "flagship", "model": label,
          "layout": "grouped", "streams": SERVING_STREAMS,
          "frames_budget": SERVING_FRAMES, **dense,
@@ -2134,7 +2351,7 @@ def phase_serving(torch, single_rtf: float) -> tuple[dict, dict]:
     engine = model.serving_engine(SERVING_STREAMS)
     if not isinstance(engine.cache_k, KVQuant):
         fail("serving kv_int8: the engine's cache is not a KVQuant")
-    results, row, kv_counts, kv_shapes = measured(engine)
+    results, row, kv_counts, kv_shapes = measured(engine, "kv_int8")
     for name in counts:
         counts[name] += kv_counts[name]
         shapes[name].update(kv_shapes[name])
@@ -2578,6 +2795,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in cuda_kernels.KERNELS}
         shapes = {k.name: set(k.shapes) for k in cuda_kernels.KERNELS}
+        declined = kernel_c_ran("server flagship", counts)
         peak = torch.cuda.max_memory_allocated() / 1e9
         frames = service.frames_total - frames_before
         audio_s = 0.0
@@ -2637,6 +2855,7 @@ def phase_server(torch, serving_rtf: float, asr) -> tuple[dict, dict]:
                                          if k == "complete"],
              "launches": counts,
              "grouped_qmv_launches_per_frame": counts["grouped_qmv"] / frames,
+             "decode_attention_declined": declined,
              "peak_mem_gb": peak,
              "dropped_stream_slot_freed_s": freed_s,
              "requests_total": health["requests_total"],
@@ -2994,8 +3213,11 @@ def _launches() -> dict:
 
 
 def _check_no_launches(where: str, counts: dict) -> None:
-    if any(counts.values()):
-        fail(f"{where}: training is dense, yet kernels launched: {counts}")
+    """Training is dense: kernels A and B never launch (kernel C runs in
+    the bf16 decodes of the exports)."""
+    if any(counts[name] for name in INT8_KERNELS):
+        fail(f"{where}: training is dense, yet int8 kernels launched: "
+             f"{counts}")
 
 
 def phase_train(torch) -> None:
@@ -3224,7 +3446,8 @@ def parallel_rank(device, tiny_prompts) -> dict:
     torch.cuda.empty_cache()
     out["flagship_f32"]["step_s"] = time.perf_counter() - t_step
     out["f32_launches"] = {k.name: k.by_dtype["float32"]
-                           for k in cuda_kernels.KERNELS}
+                           for k in cuda_kernels.KERNELS
+                           if "float32" in k.by_dtype}
     out["f32_shapes"] = {k.name: sorted(k.shapes) for k in cuda_kernels.KERNELS}
 
     t_step = time.perf_counter()

@@ -2,9 +2,18 @@
 
 RMSNorm (pre-norm), grouped-query attention with per-head QK RMSNorm,
 rotate-half RoPE, SwiGLU MLPs. Functions of (param dict, tensors); the
-quantized/dense distinction is hidden behind ``ops.linear``. Attention is
-plain tensor code (einsum + masked softmax in f32), as the JAX package
-keeps it outside any kernel.
+quantized/dense distinction is hidden behind ``ops.linear``.
+
+Attention's plain code (einsum + masked softmax in f32, ``_attend_plain``)
+is the JAX package's, which keeps attention outside any kernel. On the
+card, a bf16 decode call (T <= 2) over a dense bf16 cache with no autograd
+and no mesh takes kernel C instead (``ops/decode_attention.py``): norm,
+RoPE, cache write and the masked read in one launch, with the plain code's
+roundings. The choice reads only what the call can observe
+(``_takes_decode_kernel``; a call of the kernel's kind that it cannot take
+is counted as declined); the CPU, float32, the int8 cache, training,
+calls of T > 2 (prefill, the cold batch, the rvq codec's transformer) and
+meshes keep the plain code.
 
 Shape conventions (the JAX package's):
   x          [B, T, D]
@@ -40,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda_kernels import DECODE_ATTENTION
+from ..ops.decode_attention import HEAD_DIM, decode_attention_cuda, fits
 from ..ops.linear import linear
 from ..parallel.comm import copy_to_tp, gather_seq
 from ..profiling import trace
@@ -234,6 +245,66 @@ def _write_rows(cache, new: torch.Tensor, pos) -> None:
         c.index_put_((batch, rows), u)
 
 
+class WindowSplit(tuple):
+    """A ``window_split`` (its (rows, window) pairs, a tuple as any other)
+    that keeps its per-row window table for kernel C: made on the device at
+    the first call and reused, so the serving engine, which makes one a
+    decode function, copies nothing to the card per call."""
+
+    def table(self, batch: int, device) -> torch.Tensor:
+        """The window of each of ``batch`` rows, int64 on ``device``."""
+        t = self.__dict__.get("_table")
+        if t is None or t.device != device:
+            wins = [w for size, w in self for _ in range(size)]
+            if len(wins) != batch:
+                raise ValueError(f"window_split {tuple(self)} covers "
+                                 f"{len(wins)} of {batch} rows")
+            t = self._table = torch.tensor(wins, dtype=torch.int64,
+                                           device=device)
+        return t
+
+
+def _max_window(window_split, S: int) -> int:
+    """The widest window a call reads: its split's widest, at most S."""
+    return S if window_split is None else min(max(w for _, w in window_split),
+                                              S)
+
+
+def _takes_decode_kernel(q, k, v, norms: tuple, cache_k, cache_v, pos, pad_len,
+                         window_split, n_heads: int, n_kv_heads: int,
+                         head_dim: int, mesh) -> bool:
+    """Whether an attention call runs kernel C. A call of the kernel's kind
+    is a bf16 decode (q [B, T <= 2, ...]) on the card over a dense bf16
+    cache, with no autograd and no mesh; the kernel takes it where it is
+    written for it (head_dim 128, bf16 norm weights, int64 row positions or
+    an int ``pos`` inside the cache, and T * g score rows over the widest
+    window within the card's shared memory). A call of its kind that it
+    cannot take is counted (``DECODE_ATTENTION.declined``) and keeps the
+    plain code. Reads only the call's own tensors and arguments."""
+    T = q.shape[1]
+    if mesh is not None or T > 2 or not q.is_cuda \
+            or q.dtype != torch.bfloat16:
+        return False
+    if isinstance(cache_k, KVQuant) or isinstance(cache_v, KVQuant) \
+            or cache_k.dtype != torch.bfloat16 \
+            or cache_v.dtype != torch.bfloat16:
+        return False
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, *norms)):
+        return False
+    S = cache_k.shape[1]
+    takes = head_dim == HEAD_DIM and n_heads % n_kv_heads == 0 \
+        and all(w.dtype == torch.bfloat16 for w in norms) \
+        and all(r.dtype == torch.int64 for r in (pos, pad_len)
+                if isinstance(r, torch.Tensor)) \
+        and (isinstance(pos, torch.Tensor) or 0 <= pos <= S - T) \
+        and fits(T * (n_heads // n_kv_heads), _max_window(window_split, S),
+                 q.get_device())
+    if not takes:
+        DECODE_ATTENTION.declined += 1
+    return takes
+
+
 def attention(
     p: dict,
     x: torch.Tensor,
@@ -263,62 +334,105 @@ def attention(
     groups; group g's queries read only the first ``window`` cache rows.
     The projections stay whole-batch; only the attention read splits.
     ``mesh``: the head counts are this rank's; the o projection sums over
-    its tp group. ``sp``: x is this rank's T slice (module docstring)."""
+    its tp group. ``sp``: x is this rank's T slice (module docstring).
+
+    Between the projections the call runs kernel C or the plain code
+    (module docstring)."""
     with trace("qwen3_tts.model.attention"):
         x = _tp_input(x, mesh, sp)
-        B, T, _ = x.shape
-        groups = n_heads // n_kv_heads
         if "qkv" in p:  # fused projection (fuse_block_projections)
             q_dim = n_heads * head_dim
             kv_dim = n_kv_heads * head_dim
             qkv = linear(x, p["qkv"])
-            q = qkv[..., :q_dim].reshape(B, T, n_heads, head_dim)
-            k = qkv[..., q_dim:q_dim + kv_dim].reshape(B, T, n_kv_heads,
-                                                       head_dim)
-            v = qkv[..., q_dim + kv_dim:].reshape(B, T, n_kv_heads, head_dim)
+            q = qkv[..., :q_dim]
+            k = qkv[..., q_dim:q_dim + kv_dim]
+            v = qkv[..., q_dim + kv_dim:]
         else:
-            q = linear(x, p["q"]).reshape(B, T, n_heads, head_dim)
-            k = linear(x, p["k"]).reshape(B, T, n_kv_heads, head_dim)
-            v = linear(x, p["v"]).reshape(B, T, n_kv_heads, head_dim)
-
-        if qk_norm:  # per-head RMSNorm over head_dim (Qwen3)
-            q = rmsnorm(q, p["q_norm"], rms_eps)
-            k = rmsnorm(k, p["k_norm"], rms_eps)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-
-        _write_rows(cache_k, k, pos)
-        _write_rows(cache_v, v, pos)
-
-        qg = q.reshape(B, T, n_kv_heads, groups, head_dim)
-        steps = torch.arange(T, device=x.device)
-        if isinstance(pos, torch.Tensor):
-            qry_idx = (pos[:, None] + steps[None, :])[:, :, None]  # [B, T, 1]
-        else:
-            qry_idx = (pos + steps)[None, :, None]                 # [1, T, 1]
-        pad_b = pad_len[:, None, None] if isinstance(pad_len, torch.Tensor) \
-            else pad_len
-        if window_split is None:
-            ctx = _scores_ctx(qg, cache_k, cache_v, qry_idx, pad_b, head_dim,
-                              x.dtype)
-        else:
-            parts = []
-            lo = 0
-            for size, win in window_split:
-                hi = lo + size
-                rows = slice(lo, hi)
-                parts.append(_scores_ctx(
-                    qg[rows], cache_k[rows, :win], cache_v[rows, :win],
-                    qry_idx[rows] if qry_idx.shape[0] == B else qry_idx,
-                    pad_b[rows] if isinstance(pad_b, torch.Tensor) else pad_b,
-                    head_dim, x.dtype))
-                lo = hi
-            if lo != B:
-                raise ValueError(f"window_split {window_split} covers {lo} of "
-                                 f"{B} rows")
-            ctx = torch.cat(parts, dim=0)
-        ctx = ctx.reshape(B, T, n_heads * head_dim)
+            q = linear(x, p["q"])
+            k = linear(x, p["k"])
+            v = linear(x, p["v"])
+        norms = (p["q_norm"], p["k_norm"]) if qk_norm else ()
+        attend = _attend_kernel if _takes_decode_kernel(
+            q, k, v, norms, cache_k, cache_v, pos, pad_len, window_split,
+            n_heads, n_kv_heads, head_dim, mesh) else _attend_plain
+        ctx = attend(p, q, k, v, cos=cos, sin=sin, cache_k=cache_k,
+                     cache_v=cache_v, pos=pos, n_heads=n_heads,
+                     n_kv_heads=n_kv_heads, head_dim=head_dim,
+                     rms_eps=rms_eps, qk_norm=qk_norm, pad_len=pad_len,
+                     window_split=window_split, out_dtype=x.dtype)
         return AttnOut(linear(ctx, p["o"], mesh, sp), cache_k, cache_v)
+
+
+def _attend_kernel(p: dict, q, k, v, *, cos, sin, cache_k, cache_v, pos,
+                   n_heads: int, n_kv_heads: int, head_dim: int,
+                   rms_eps: float, qk_norm: bool, pad_len, window_split,
+                   out_dtype) -> torch.Tensor:
+    """``_attend_plain``'s work in one launch of kernel C, for a call that
+    ``_takes_decode_kernel`` (bf16 out, head_dim 128)."""
+    table = None
+    if window_split is not None:
+        if not isinstance(window_split, WindowSplit):  # made per call
+            window_split = WindowSplit(window_split)
+        table = window_split.table(q.shape[0], q.device)
+    max_win = _max_window(window_split, cache_k.shape[1])
+    q_norm, k_norm = (p["q_norm"], p["k_norm"]) if qk_norm else (None, None)
+    return decode_attention_cuda(q, k, v, q_norm, k_norm, cos, sin, cache_k,
+                                 cache_v, pos, pad_len, table, max_win,
+                                 n_heads, n_kv_heads, rms_eps)
+
+
+def _attend_plain(p: dict, q, k, v, *, cos, sin, cache_k, cache_v, pos,
+                  n_heads: int, n_kv_heads: int, head_dim: int,
+                  rms_eps: float, qk_norm: bool, pad_len, window_split,
+                  out_dtype) -> torch.Tensor:
+    """Attention's plain code between the projections: q [B, T, H * hd],
+    k/v [B, T, H_kv * hd] -> the context [B, T, H * hd] in ``out_dtype``
+    (the layer input's), with
+    the per-head norm, RoPE, the cache write and the masked read
+    (``attention``'s arguments)."""
+    B, T, _ = q.shape
+    groups = n_heads // n_kv_heads
+    q = q.reshape(B, T, n_heads, head_dim)
+    k = k.reshape(B, T, n_kv_heads, head_dim)
+    v = v.reshape(B, T, n_kv_heads, head_dim)
+
+    if qk_norm:  # per-head RMSNorm over head_dim (Qwen3)
+        q = rmsnorm(q, p["q_norm"], rms_eps)
+        k = rmsnorm(k, p["k_norm"], rms_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    _write_rows(cache_k, k, pos)
+    _write_rows(cache_v, v, pos)
+
+    qg = q.reshape(B, T, n_kv_heads, groups, head_dim)
+    steps = torch.arange(T, device=q.device)
+    if isinstance(pos, torch.Tensor):
+        qry_idx = (pos[:, None] + steps[None, :])[:, :, None]  # [B, T, 1]
+    else:
+        qry_idx = (pos + steps)[None, :, None]                 # [1, T, 1]
+    pad_b = pad_len[:, None, None] if isinstance(pad_len, torch.Tensor) \
+        else pad_len
+    if window_split is None:
+        ctx = _scores_ctx(qg, cache_k, cache_v, qry_idx, pad_b, head_dim,
+                          out_dtype)
+    else:
+        parts = []
+        lo = 0
+        for size, win in window_split:
+            hi = lo + size
+            rows = slice(lo, hi)
+            parts.append(_scores_ctx(
+                qg[rows], cache_k[rows, :win], cache_v[rows, :win],
+                qry_idx[rows] if qry_idx.shape[0] == B else qry_idx,
+                pad_b[rows] if isinstance(pad_b, torch.Tensor) else pad_b,
+                head_dim, out_dtype))
+            lo = hi
+        if lo != B:
+            raise ValueError(f"window_split {window_split} covers {lo} of "
+                             f"{B} rows")
+        ctx = torch.cat(parts, dim=0)
+    return ctx.reshape(B, T, n_heads * head_dim)
 
 
 def _tp_input(x: torch.Tensor, mesh, sp: bool) -> torch.Tensor:

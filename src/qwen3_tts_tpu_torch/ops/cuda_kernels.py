@@ -8,9 +8,10 @@ together) into ``build/kernels/`` at the repository root. Library names
 carry a hash of the source, of the headers it includes and of the flags,
 so an edited source or header rebuilds and an unchanged one loads.
 
-Each source exports two C entry points, one per activation type
-(bfloat16 and float32, e.g. ``qmv_grouped_bf16`` and ``qmv_grouped_f32``),
-both with the signature::
+The two matmul kernels (A and B: ``GROUPED_QMV``, ``DEQUANT_MATMUL``)
+export two C entry points each, one per activation type (bfloat16 and
+float32, e.g. ``qmv_grouped_bf16`` and ``qmv_grouped_f32``), both with the
+signature::
 
     int fn(const void* x, const void* w, const void* scale, const void* bias,
            void* out, void* workspace, void* counters, int M, int K, int N,
@@ -24,7 +25,12 @@ ring's rows, k_splits, k_unit, sb_groups) from
 both instances of a kernel read a plan). Each returns the CUDA error of its
 launch; :class:`Kernel` raises when that is not 0, and counts the launches
 that succeeded (per entry in ``by_dtype``, their sum in ``launches``) and the (M, N,
-K, gs) shapes they ran. The nvcc output of a build (ptxas' registers and
+K, gs) shapes they ran. Kernel C (``DECODE_ATTENTION``,
+``csrc/decode_attention.cu``, bound by ``ops/decode_attention.py``) has one
+bf16 entry, counts the shapes named by its ``dims``, and exports one more C
+function, ``decode_attention_fits`` (:meth:`Kernel.function`). Every kernel
+also counts the calls of its kind that its caller sent to the plain code
+instead (``declined``). The nvcc output of a build (ptxas' registers and
 spills) is kept beside its library.
 """
 
@@ -36,6 +42,7 @@ import os
 import re
 import shutil
 import subprocess
+from collections.abc import Callable
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -68,17 +75,22 @@ def nvcc_path() -> str:
 class Kernel:
     """One CUDA source, its shared library, its entry points by activation
     type (``symbols``: dtype name -> C symbol) and its launch counts: each
-    entry's (``by_dtype``) and their sum (``launches``)."""
+    entry's (``by_dtype``), their sum (``launches``), and the calls its
+    caller found to be of the kernel's kind yet could not give it
+    (``declined``)."""
 
     def __init__(self, name: str, source: str, symbols: dict[str, str],
-                 argtypes):
+                 argtypes, dims: tuple[str, ...] = ("M", "N", "K", "gs")):
         self.name = name
         self.source = CSRC / source
         self.symbols = symbols
         self.argtypes = argtypes
+        self.dims = dims  # the names of a launch shape's entries
         self.by_dtype = dict.fromkeys(symbols, 0)
-        self.shapes: set[tuple[int, int, int, int]] = set()  # (M, N, K, gs)
+        self.shapes: set[tuple[int, ...]] = set()  # e.g. (M, N, K, gs)
+        self.declined = 0
         self.build_log = ""
+        self._handle = None
         self._fns = None
 
     def headers(self) -> list[Path]:
@@ -110,15 +122,24 @@ class Kernel:
                 self.build_log = log.read_text() if log.exists() else ""
             else:
                 self._build(lib)
-            handle = ctypes.CDLL(str(lib))
+            self._handle = ctypes.CDLL(str(lib))
             fns = {}
             for dtype, symbol in self.symbols.items():
-                fn = getattr(handle, symbol)
+                fn = getattr(self._handle, symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
                 fns[dtype] = fn
             self._fns = fns
         return self._fns
+
+    def function(self, symbol: str, argtypes) -> Callable[..., int]:
+        """Another C function of the library, returning an int (not an
+        entry point: its calls are not counted)."""
+        self.load()
+        fn = getattr(self._handle, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
     def _build(self, lib: Path) -> None:
         """nvcc into a temporary name, then move into place atomically
@@ -138,16 +159,15 @@ class Kernel:
         lib.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, lib)
 
-    def call(self, dtype: str, args: tuple,
-             shape: tuple[int, int, int, int]) -> None:
-        """Call the ``dtype`` entry point with ``args`` (one launch of the
-        (M, N, K, gs) ``shape``); raises if the launch was refused."""
+    def call(self, dtype: str, args: tuple, shape: tuple[int, ...]) -> None:
+        """Call the ``dtype`` entry point with ``args`` (one launch of
+        ``shape``, named by ``dims``); raises if the launch was refused."""
         rc = self.load()[dtype](*args)
         if rc != 0:
-            m, n, k, gs = shape
+            named = ", ".join(f"{d}={v}" for d, v in zip(self.dims, shape))
             raise RuntimeError(
                 f"CUDA kernel {self.name} ({dtype}) failed to launch: "
-                f"cudaError {rc} (M={m}, K={k}, N={n}, gs={gs})"
+                f"cudaError {rc} ({named})"
             )
         self.by_dtype[dtype] += 1
         self.shapes.add(shape)
@@ -165,7 +185,17 @@ GROUPED_QMV = Kernel("grouped_qmv", "grouped_qmv.cu",
 DEQUANT_MATMUL = Kernel("dequant_matmul", "dequant_matmul.cu",
                         {"bfloat16": "dequant_matmul_bf16",
                          "float32": "dequant_matmul_f32"}, _ARGTYPES)
-KERNELS = (GROUPED_QMV, DEQUANT_MATMUL)
+# q, k, v, q_norm, k_norm, cos, sin, cache_k, cache_v, pos, pad, win, out;
+# the q, k, v token strides and the cache row stride; rope_stride, B, T,
+# n_heads, n_kv_heads, S, pos_int, pad_int, max_win; eps, scale; stream
+DECODE_ATTENTION = Kernel(
+    "decode_attention", "decode_attention.cu",
+    {"bfloat16": "decode_attention_bf16"},
+    [_PTR] * 13 + [ctypes.c_longlong] * 4 + [_INT] * 9
+    + [ctypes.c_float] * 2 + [_PTR],
+    dims=("B", "T", "heads", "kv_heads", "window", "qk_norm", "row_pos",
+          "split"))
+KERNELS = (GROUPED_QMV, DEQUANT_MATMUL, DECODE_ATTENTION)
 
 
 def build_all() -> None:
@@ -176,7 +206,9 @@ def build_all() -> None:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch counts and forget the shapes it ran."""
+    """Zero every kernel's launch and decline counts and forget the shapes
+    it ran."""
     for k in KERNELS:
         k.by_dtype = dict.fromkeys(k.symbols, 0)
         k.shapes.clear()
+        k.declined = 0

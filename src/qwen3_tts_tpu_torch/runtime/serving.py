@@ -57,7 +57,8 @@ import torch
 from ..engine.configs import ModelConfig
 from ..engine.weights import _leaves
 from ..models.codec import init_codec_stream_state, max_stream_frames
-from ..models.layers import kv_cache_init, kv_env_format, rope_tables
+from ..models.layers import (WindowSplit, kv_cache_init, kv_env_format,
+                             rope_tables)
 from ..models.talker import talker_forward
 from ..profiling import trace
 from . import generate
@@ -295,10 +296,11 @@ class ServingEngine:
 
     def _decode_fn(self, chunk: int, wins: tuple[int, ...]) -> Callable:
         """The chunk step for one (chunk, per-group attention windows)
-        pair: one window per slot group, a single entry = no split."""
+        pair: one window per slot group, a single entry = no split (a
+        ``WindowSplit``: its per-row table is made once, on the card)."""
         key = (chunk, wins)
         if key not in self._decode_fns:
-            split = (tuple((self.B // len(wins), w) for w in wins)
+            split = (WindowSplit((self.B // len(wins), w) for w in wins)
                      if len(wins) > 1 else None)
             make = (make_decode_chunk_fn_feedback if self.feedback
                     else make_decode_chunk_fn)

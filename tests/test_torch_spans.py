@@ -6,6 +6,7 @@ launched before the slice left unattributed, idle gaps put down to the
 innermost span; and kernel A's entry opening its span. No JAX."""
 
 import importlib
+import importlib.util
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -199,6 +200,34 @@ def test_span_metric_reads_its_share_of_the_slice(harness, metric):
     assert read(_ctx([e for e in EVENTS
                       if not e.name().startswith("qwen3_tts.")])) is None
     assert read(_ctx(EVENTS, profile=False)) is None
+
+
+def test_decode_attention_share_counts_kernel_c_over_attention_calls(
+        harness, monkeypatch):
+    """``kernels.decode_attention_share``: 100 x the slice's kernel C spans
+    over its attention spans; 0 where attention ran without kernel C;
+    nothing where no span was recorded or the program has no kernel C."""
+    man = harness.manifest.Manifest(str(ROOT))
+    name = "kernels.decode_attention_share"
+    entry = next(m for m in man.bench["per_layer"] if m["name"] == name)
+    assert (entry["source"], entry["unit"], entry["layer"], entry["moves"]) \
+        == ("device_trace", "%", "kernels", "audio_s_per_s")
+    read = man.reader(name)
+    # kernel C in the talker's attention, not in the predictor's
+    one = EVENTS + [_span("kernel.decode_attention", 22.5, 24)]
+    assert read(_ctx(one)) == pytest.approx(50.0)
+    both = one + [_span("kernel.decode_attention", 56, 59)]
+    assert read(_ctx(both)) == pytest.approx(100.0)
+    assert read(_ctx(EVENTS)) == 0.0
+    assert read(_ctx([e for e in both
+                      if not e.name().startswith("qwen3_tts.")])) is None
+    assert read(_ctx(both, profile=False)) is None
+    # a program without kernel C: the same slice reads nothing
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+        None if name.endswith(".decode_attention") else find_spec(name, *a)))
+    assert read(_ctx(EVENTS)) is None
+    assert read(_ctx(both)) is None
 
 
 def test_kernel_a_entry_opens_its_span_on_either_route():
