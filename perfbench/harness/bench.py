@@ -16,9 +16,8 @@ import torch
 
 from . import check, host, traffic
 from .drive import Clients, Recorder
-from .manifest import Manifest, problems
+from .manifest import Family, Manifest, family_of, problems
 from .program import build_model, port_config
-from .weights import make_weights
 
 
 class NoDevice(RuntimeError):
@@ -30,6 +29,7 @@ class Context:
     """What the metric readers read (``perfbench/metrics/*.py``)."""
 
     config: dict
+    family: Family
     setup_s: float
     t_open: float
     t_close: float
@@ -74,6 +74,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         raise ValueError("BENCHMARK.json: " + "; ".join(bad))
     cell = man.cell(workload)
     cfg = man.config(cell["config"])
+    family = man.family(family_of(cfg))
     mix = man.traffic(cell["traffic"])
     spec = man.cell_file(workload)
     limits = spec["check"]["limits"]
@@ -92,7 +93,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     phases = [("start", t_start)]
 
     # -- set-up ---------------------------------------------------------------
-    raw = make_weights(cfg, seed, dev)
+    raw = family.weights.make_weights(cfg, seed, dev)
     model = build_model(cfg, port_config(cfg), raw, dev)
     if device == "cuda" and cfg["weights"]["format"] == "int8":
         from qwen3_tts_tpu_torch.ops import cuda_kernels
@@ -179,8 +180,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     # a slice inside the window ends the host clock's part of it
     t_host = min(t_close, rec.slice_t0) if trace else t_close
     host_line = host.summary(t_open, t_host, rec.engine_host, p_open, p_close)
-    ctx = Context(config=cfg, setup_s=setup_s, t_open=t_open, t_close=t_host,
-                  recorder=rec, records=list(clients.records),
+    ctx = Context(config=cfg, family=family, setup_s=setup_s, t_open=t_open,
+                  t_close=t_host, recorder=rec, records=list(clients.records),
                   peak_bytes=peak, hop=hop,
                   profile=rec.slice.read() if trace else None)
     phases.append(("read", time.perf_counter()))
@@ -217,7 +218,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                         seed)
     sample = [check.served_request(r, served, seeds, cfg) for r in picked]
     phases.append(("checking", time.perf_counter()))
-    prog, ctl = check.judge(raw, cfg, sample, dev, control=control)
+    prog, ctl = check.judge(family.reference, raw, cfg, sample, dev,
+                            control=control)
     phases.append(("checked", time.perf_counter()))
     # the numbers judged: the program's, or the control's in its place
     numbers = prog if ctl is None else ctl

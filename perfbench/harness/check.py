@@ -1,10 +1,11 @@
 """Whether what the timed path served is right: a sample of the requests it
 finished, judged by the plain reference.
 
-For each sampled request the reference works out its prompt from the text,
-runs the talker teacher-forced over the prompt and every frame the program
-served (the seed frame, then the rendered ones), the code predictor over
-each frame's served codes, and code2wav over the rendered codes. Compared:
+For each sampled request the reference (the configuration's family's
+``reference.py``) works out its prompt from the text, runs the talker
+teacher-forced over the prompt and every frame the program served (the
+seed frame, then the rendered ones), the code predictor over each frame's
+served codes, and code2wav over the rendered codes. Compared:
 
 - ``talker_gap``: the widest gap by which a served cb0 token's reference
   logit lies below the reference's best at its position;
@@ -98,13 +99,14 @@ class Judge:
         self.sums[part][1] += gap.numel()
 
 
-def judge(raw: dict, cfg: dict, requests: list[dict], device,
+def judge(fam, raw: dict, cfg: dict, requests: list[dict], device,
           control: str | None = None) -> tuple[dict, dict | None]:
     """(the program's numbers, the numbers of the control named
-    ``control``, or None)."""
+    ``control``, or None), worked out by ``fam``, the configuration's
+    family's ``reference.py``."""
     w = cfg["code2wav"]
     hop = int(np.prod(w["upsample_rates"]) * np.prod(w["upsampling_ratios"]))
-    startup = ref.startup_samples(w)
+    startup = fam.startup_samples(w)
     prog, ctl = Judge(), Judge()
     with torch.inference_mode(), ref.no_tf32():
         R = ref.Weights(raw, REFERENCE)
@@ -120,10 +122,10 @@ def judge(raw: dict, cfg: dict, requests: list[dict], device,
                 dtype=torch.long, device=device)               # [N + 1, Q]
             req = {"tokens": rq["tokens"], "speaker_id": rq["speaker_id"],
                    "codes": codes}
-            lg0, lgd = ref.judge_tokens(R, cfg, req)
+            lg0, lgd = fam.judge_tokens(R, cfg, req)
             prog.add("talker", lg0, codes[:, 0])
             prog.add("predictor", lgd, codes[:, 1:])
-            wav = ref.pcm16(ref.code2wav(R, w, codes[1:].T))
+            wav = ref.pcm16(fam.code2wav(R, w, codes[1:].T))
             pcm = torch.as_tensor(rq["pcm"].astype(np.float32), device=device)
             if pcm.shape[0] != n * hop - startup or wav.shape != pcm.shape:
                 prog.bad_pcm = True
@@ -131,10 +133,10 @@ def judge(raw: dict, cfg: dict, requests: list[dict], device,
                 prog.err2 += float(((pcm - wav) ** 2).sum())
                 prog.ref2 += float((wav ** 2).sum())
             if C is not None:
-                c0, cd = ref.judge_tokens(C, cfg, req)
+                c0, cd = fam.judge_tokens(C, cfg, req)
                 ctl.add("talker", lg0, c0.argmax(-1))
                 ctl.add("predictor", lgd, cd.argmax(-1))
-                cw = ref.pcm16(ref.code2wav(C, w, codes[1:].T))
+                cw = ref.pcm16(fam.code2wav(C, w, codes[1:].T))
                 ctl.err2 += float(((cw - wav) ** 2).sum())
                 ctl.ref2 += float((wav ** 2).sum())
     return prog.numbers(), (ctl.numbers() if control else None)

@@ -4,8 +4,15 @@ A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 Its files: the configuration's ``file``, ``perfbench/traffic/<traffic>.json``
 (the mix), ``perfbench/workloads/<cell>.json`` (the cell's check: how many
 requests it judges and each compared number's limit) and one reader module
-``perfbench/metrics/<metric>.py`` per metric it reports. Adding a cell, a
-configuration or a metric adds files and entries; no file changes.
+``perfbench/metrics/<metric>.py`` per metric it reports.
+
+A configuration's file names its model family under ``"family"``
+(``port_geometry`` where it names none). A family is the code of one model
+layout, in ``perfbench/families/<family>/``: ``weights.py``
+(``make_weights``), ``reference.py`` (``judge_tokens``, ``code2wav``,
+``startup_samples``) and ``flops.py`` (``frame``, ``prompt``,
+``prompt_rows``, ``seed_frame``). Adding a cell, a configuration, a metric
+or a model layout (a family) adds files and entries; no file changes.
 """
 
 from __future__ import annotations
@@ -14,9 +21,13 @@ import importlib.util
 import json
 import os
 import re
+from dataclasses import dataclass
+from types import ModuleType
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+DEFAULT_FAMILY = "port_geometry"
+FAMILY_MODULES = ("weights", "reference", "flops")
 
 
 def root_of(path: str) -> str:
@@ -27,6 +38,30 @@ def root_of(path: str) -> str:
 def _json(path: str):
     with open(path) as f:
         return json.load(f)
+
+
+def _load(path: str, name: str) -> ModuleType:
+    """The module at ``path``, loaded under ``name`` (not in sys.modules)."""
+    spec = importlib.util.spec_from_file_location(
+        re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family_of(cfg: dict) -> str:
+    """The model family a configuration names."""
+    return cfg.get("family", DEFAULT_FAMILY)
+
+
+@dataclass(frozen=True)
+class Family:
+    """One model layout's modules (``perfbench/families/<name>/``)."""
+
+    name: str
+    weights: ModuleType
+    reference: ModuleType
+    flops: ModuleType
 
 
 class Manifest:
@@ -70,18 +105,22 @@ class Manifest:
     def reader(self, metric: str):
         """The ``read(ctx)`` function of ``perfbench/metrics/<metric>.py``."""
         path = os.path.join(self.perfbench, "metrics", f"{metric}.py")
-        spec = importlib.util.spec_from_file_location(
-            "perfbench_metric_" + re.sub(r"\W", "_", metric), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(path, "perfbench_metric_" + metric).read
+
+    def family(self, name: str) -> Family:
+        """The modules of the model family ``name``."""
+        d = os.path.join(self.perfbench, "families", name)
+        return Family(name, *(_load(os.path.join(d, f"{m}.py"),
+                                    f"perfbench_family_{name}_{m}")
+                              for m in FAMILY_MODULES))
 
 
 def problems(bench: dict, root: str) -> list[str]:
     """What in ``bench`` breaks the manifest's rules: names and units, each
-    configuration used and its file present, each cell's files present,
-    each metric's reader present, and each ``moves`` reported in every
-    cell of its metric."""
+    configuration used and its file present, each configuration's family
+    present with its three modules, each cell's files present, each
+    metric's reader present, and each ``moves`` reported in every cell of
+    its metric."""
     out = []
     names = ([c["name"] for c in bench["configs"]]
              + [w["name"] for w in bench["workloads"]]
@@ -104,8 +143,20 @@ def problems(bench: dict, root: str) -> list[str]:
     for c in bench["configs"]:
         if c["name"] not in used:
             out.append(f"config {c['name']} has no cell")
-        if not os.path.isfile(os.path.join(root, c["file"])):
+        path = os.path.join(root, c["file"])
+        if not os.path.isfile(path):
             out.append(f"config file {c['file']} missing")
+            continue
+        fam = family_of(_json(path))
+        if not NAME.match(fam):
+            out.append(f"config {c['name']}: bad family name {fam!r}")
+            continue
+        d = os.path.join(pb, "families", fam)
+        if not os.path.isdir(d):
+            out.append(f"config {c['name']} names unknown family {fam}")
+            continue
+        out += [f"family {fam} lacks {m}.py" for m in FAMILY_MODULES
+                if not os.path.isfile(os.path.join(d, f"{m}.py"))]
     for w in bench["workloads"]:
         if w["config"] not in {c["name"] for c in bench["configs"]}:
             out.append(f"cell {w['name']} names unknown config {w['config']}")

@@ -1,25 +1,22 @@
-"""The model's weights, made on the device from the seed.
+"""The leaf drawers that every model family's weights use, on the device,
+from the seed.
 
-One ``torch.Generator`` on the device draws every leaf in the program's
-tree layout (stacked layers, ``[out, in]`` linears), in the type it is
-served in:
+One ``torch.Generator`` on the device (``Draw``) draws every leaf in the
+program's tree layout (stacked layers, ``[out, in]`` linears), in the type
+it is served in:
 
-- ``int8``: each linear of the talker and of the code predictor as the
-  8-bit snapshot holds it: uint8 codes, and a scale and a bias per group
-  of ``group_size`` inputs, both rounded to bfloat16 (the snapshot's
-  type) and kept as float32, so ``W = scale * q + bias`` spans about
-  +-0.035 around zero (std 0.02);
+- ``int8``: each linear as the 8-bit snapshot holds it: uint8 codes, and
+  a scale and a bias per group of ``group_size`` inputs, both rounded to
+  bfloat16 (the snapshot's type) and kept as float32, so
+  ``W = scale * q + bias`` spans about +-0.035 around zero (std 0.02);
 - ``bfloat16``: the same linears dense, normal with std 0.02.
 
-Embeddings, the predictor's heads, the norms and the whole code2wav
-decoder are dense in the configuration's type (bfloat16) in both formats,
-as the program keeps them.
-The codec head's rows of the control tokens (BOS, EOS, PAD) are zero, so
-their logit is exactly 0 while the 2,048 codes' logits spread around it:
-a greedy decode never stops early or emits a control token, and every
-request runs to its frame budget.
-
-The same tensors go to the program and to the reference.
+Embeddings, heads, norms and the whole code2wav decoder are dense in the
+configuration's type (bfloat16) in both formats, as the program keeps
+them. Shared here: ``Draw``, a Qwen3 block stack (``block_tree``) and the
+12 Hz code2wav decoder (``code2wav_tree``). A family's ``weights.py``
+(``perfbench/families/<family>/``) draws its talker and code predictor
+with them; the same tensors go to the program and to the reference.
 """
 
 from __future__ import annotations
@@ -29,9 +26,12 @@ import math
 import torch
 
 STD = 0.02
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class Draw:
+    """One generator on ``device`` seeded with ``seed``; leaves in ``dtype``."""
+
     def __init__(self, seed: int, device, dtype=torch.bfloat16):
         self.gen = torch.Generator(device=device).manual_seed(int(seed))
         self.dev = torch.device(device)
@@ -61,67 +61,37 @@ class Draw:
         return {"q": q, "scale": scale, "bias": bias.float()}
 
 
-def _norms(d: Draw, shape):
+def norms(d: Draw, shape):
+    """Norm weights near 1."""
     return d.normal(shape, 0.05, 1.0)
 
 
-def _block_tree(d: Draw, fmt: dict, L, hidden, q_dim, kv_dim, ffn, hd):
+def block_tree(d: Draw, fmt: dict, L, hidden, q_dim, kv_dim, ffn, hd):
+    """``L`` stacked Qwen3 blocks: q/k/v/o with per-head q/k norms, a
+    SwiGLU MLP, the two pre-norms."""
     return {
         "attn": {
             "q": d.linear(fmt, (L, q_dim, hidden)),
             "k": d.linear(fmt, (L, kv_dim, hidden)),
             "v": d.linear(fmt, (L, kv_dim, hidden)),
             "o": d.linear(fmt, (L, hidden, q_dim)),
-            "q_norm": _norms(d, (L, hd)),
-            "k_norm": _norms(d, (L, hd)),
+            "q_norm": norms(d, (L, hd)),
+            "k_norm": norms(d, (L, hd)),
         },
         "mlp": {
             "gate": d.linear(fmt, (L, ffn, hidden)),
             "up": d.linear(fmt, (L, ffn, hidden)),
             "down": d.linear(fmt, (L, hidden, ffn)),
         },
-        "ln1": _norms(d, (L, hidden)),
-        "ln2": _norms(d, (L, hidden)),
+        "ln1": norms(d, (L, hidden)),
+        "ln2": norms(d, (L, hidden)),
     }
 
 
-def _zero_rows(lin: dict, rows: list[int]) -> None:
+def zero_rows(lin: dict, rows: list[int]) -> None:
+    """Zero the output rows ``rows`` of a raw linear, in every format."""
     for key in lin:
         lin[key][rows] = 0
-
-
-def talker_tree(d: Draw, cfg: dict) -> dict:
-    t, fmt = cfg["talker"], cfg["weights"]
-    D = t["hidden"]
-    head = d.linear(fmt, (t["codec_vocab"], D))
-    _zero_rows(head, [t["codec_bos"], t["codec_eos"], t["codec_pad"]])
-    return {
-        "text_emb": d.normal((t["vocab_size"], D)),
-        "codec_emb": d.normal((t["codec_vocab"], D)),
-        "spk_emb": d.normal((t["n_speakers"], D)),
-        "blocks": _block_tree(d, fmt, t["n_layers"], D,
-                              t["n_heads"] * t["head_dim"],
-                              t["n_kv_heads"] * t["head_dim"], t["ffn"],
-                              t["head_dim"]),
-        "ln_f": _norms(d, (D,)),
-        "head": head,
-    }
-
-
-def predictor_tree(d: Draw, cfg: dict) -> dict:
-    c, fmt = cfg["code_predictor"], cfg["weights"]
-    cb = cfg["code2wav"]["codebook_size"]
-    n_res = cfg["code2wav"]["num_quantizers"] - 1
-    H = c["hidden"]
-    q_dim = c["n_heads"] * c["head_dim"]
-    return {
-        "cb0_emb": d.normal((cb, H)),
-        "res_emb": d.normal((n_res, cb, H)),
-        "heads": d.normal((n_res, cb, H)),
-        "blocks": _block_tree(d, fmt, c["n_layers"], H, q_dim, q_dim,
-                              c["ffn"], c["head_dim"]),
-        "ln_f": _norms(d, (H,)),
-    }
 
 
 def code2wav_tree(d: Draw, c: dict) -> dict:
@@ -153,8 +123,8 @@ def code2wav_tree(d: Draw, c: dict) -> dict:
                  "o": dense(H, c["n_heads"] * hd)},
         "mlp": {"gate": dense(c["ffn"], H), "up": dense(c["ffn"], H),
                 "down": dense(H, c["ffn"])},
-        "ln1": _norms(d, (L, H)),
-        "ln2": _norms(d, (L, H)),
+        "ln1": norms(d, (L, H)),
+        "ln2": norms(d, (L, H)),
         "ls_attn": d.normal((L, H), 0.01, c["layer_scale_init"]),
         "ls_mlp": d.normal((L, H), 0.01, c["layer_scale_init"]),
     }
@@ -162,7 +132,7 @@ def code2wav_tree(d: Draw, c: dict) -> dict:
         "tconv": tconv(H, H, r, r),
         "cnx": {
             "dw": conv(H, 1, 7),
-            "ln_w": _norms(d, (H,)),
+            "ln_w": norms(d, (H,)),
             "ln_b": d.normal((H,), 0.02),
             "pw1": {"w": d.normal((4 * H, H), 1.0 / math.sqrt(H)),
                     "b": d.normal((4 * H,), 0.02)},
@@ -185,7 +155,7 @@ def code2wav_tree(d: Draw, c: dict) -> dict:
     out_dim = D // 2 ** len(c["upsample_rates"])
     return {
         "code_emb": d.normal((c["codebook_size"] * c["num_quantizers"], H)),
-        "pre": {"blocks": blocks, "ln_f": _norms(d, (H,))},
+        "pre": {"blocks": blocks, "ln_f": norms(d, (H,))},
         "upsample": upsample,
         "decoder": {
             "conv_in": conv(D, H, 7),
@@ -194,14 +164,3 @@ def code2wav_tree(d: Draw, c: dict) -> dict:
             "conv_out": conv(1, out_dim, 7, 0.08),
         },
     }
-
-
-def make_weights(cfg: dict, seed: int, device) -> dict:
-    """Every leaf of the model, drawn on ``device`` from ``seed``:
-    ``{"talker", "predictor", "code2wav"}`` trees in the program's layout."""
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg["dtype"]]
-    with torch.no_grad():
-        d = Draw(seed, device, dtype)
-        return {"talker": talker_tree(d, cfg),
-                "predictor": predictor_tree(d, cfg),
-                "code2wav": code2wav_tree(d, cfg["code2wav"])}

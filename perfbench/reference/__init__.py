@@ -1,7 +1,9 @@
-"""The plain reference of the served model, in float32 PyTorch.
+"""The plain reference of the served model, in float32 PyTorch: the shared
+blocks here, and each model family's ``reference.py``
+(``perfbench/families/<family>/``) over them.
 
 It imports nothing of the program under test and nothing of JAX. It reads
-the raw weights that the benchmark made (``harness/weights.py``), the same
+the raw weights that the benchmark made (a family's ``weights.py``), the same
 tensors the program was handed, and works out everything else again: the
 dequantized weights, the prompt rows, the trailing text, the RoPE tables.
 It runs teacher-forced over a served request (prompt, then every frame the

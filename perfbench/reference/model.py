@@ -1,15 +1,16 @@
-"""Teacher-forced passes of the talker, the code predictor and code2wav.
+"""The building blocks of the served model's plain reference, shared by
+every model family (``perfbench/families/<family>/reference.py``).
 
-The mathematics of the published Qwen3-TTS 12 Hz model as the program
-implements it (a frozen copy of its plain code): a Qwen3 talker (pre-norm
-RMSNorm, grouped-query attention with per-head q/k RMSNorm, rotate-half
-RoPE, SwiGLU), the two-position depth transformer that predicts the 15
-residual codebooks, and the code2wav decoder (mean code embedding,
-sliding-window pre-transformer with LayerScale, ConvNeXt upsampling,
-SnakeBeta decoder blocks). Everything runs over whole sequences with
-causal masks: no cache, no batching of requests, no kernels. Matrix
-products take float32 with TF32 off (``no_tf32``), or the precision's
-activation type for the control.
+The mathematics of the Qwen3-TTS 12 Hz model as the program implements it
+(a frozen copy of its plain code): the Qwen3 block (pre-norm RMSNorm,
+grouped-query attention with optional per-head q/k RMSNorm, rotate-half
+RoPE, SwiGLU) and the talker's stack of them (``talker_pass``), and the
+code2wav decoder (mean code embedding, sliding-window pre-transformer with
+LayerScale, ConvNeXt upsampling, SnakeBeta decoder blocks). A family
+assembles its prompt and its code predictor from them. Everything runs
+over whole sequences with causal masks: no cache, no batching of
+requests, no kernels. Matrix products take float32 with TF32 off
+(``no_tf32``), or the precision's activation type for the control.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import prompt
 from .quant import Precision
 
 DILATIONS = (1, 3, 9)
@@ -40,18 +40,18 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32 = cd
 
 
-def _lin(x, w, act, b=None):
+def lin(x, w, act, b=None):
     y = x.to(act) @ w.to(act).t()
     return y if b is None else y + b.to(act)
 
 
-def _rmsnorm(x, w, eps, act):
+def rmsnorm(x, w, eps, act):
     xf = x.float()
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
     return (y * w.float()).to(act)
 
 
-def _rope(x, theta, act):
+def rope(x, theta, act):
     """Rotate-half RoPE over x [..., T, H, hd] at positions 0..T-1."""
     T, hd = x.shape[-3], x.shape[-1]
     half = hd // 2
@@ -63,7 +63,7 @@ def _rope(x, theta, act):
     return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1)
 
 
-def _attend(q, k, v, allowed, act):
+def attend(q, k, v, allowed, act):
     """q [B, T, H, hd], k/v [B, T, Hkv, hd]; scores and softmax in float32,
     probabilities in the activation type, float32 accumulation."""
     groups = q.shape[2] // k.shape[2]
@@ -77,7 +77,7 @@ def _attend(q, k, v, allowed, act):
     return ctx.reshape(q.shape[0], q.shape[1], -1)
 
 
-def _causal(T, device, window=None):
+def causal(T, device, window=None):
     i = torch.arange(T, device=device)
     ok = i[None, :] <= i[:, None]
     if window is not None:
@@ -102,24 +102,25 @@ class Weights:
         return self.prec.table(t)
 
 
-def _block(W: Weights, blocks: dict, i: int, x, *, n_heads, n_kv, hd, eps,
-           theta, qk_norm, allowed):
+def block(W: Weights, blocks: dict, i: int, x, *, n_heads, n_kv, hd, eps,
+          theta, qk_norm, allowed):
+    """Block ``i`` of the stacked ``blocks`` over x [B, T, D]."""
     act = W.act
     a, m = blocks["attn"], blocks["mlp"]
     B, T, _ = x.shape
-    h = _rmsnorm(x, blocks["ln1"][i], eps, act)
-    q = _lin(h, W.lin(a["q"], i), act).reshape(B, T, n_heads, hd)
-    k = _lin(h, W.lin(a["k"], i), act).reshape(B, T, n_kv, hd)
-    v = _lin(h, W.lin(a["v"], i), act).reshape(B, T, n_kv, hd)
+    h = rmsnorm(x, blocks["ln1"][i], eps, act)
+    q = lin(h, W.lin(a["q"], i), act).reshape(B, T, n_heads, hd)
+    k = lin(h, W.lin(a["k"], i), act).reshape(B, T, n_kv, hd)
+    v = lin(h, W.lin(a["v"], i), act).reshape(B, T, n_kv, hd)
     if qk_norm:
-        q = _rmsnorm(q, a["q_norm"][i], eps, act)
-        k = _rmsnorm(k, a["k_norm"][i], eps, act)
-    q, k = _rope(q, theta, act), _rope(k, theta, act)
-    x = x + _lin(_attend(q, k, v, allowed, act), W.lin(a["o"], i), act)
-    h = _rmsnorm(x, blocks["ln2"][i], eps, act)
-    g = _lin(h, W.lin(m["gate"], i), act)
-    u = _lin(h, W.lin(m["up"], i), act)
-    return x + _lin(F.silu(g) * u, W.lin(m["down"], i), act)
+        q = rmsnorm(q, a["q_norm"][i], eps, act)
+        k = rmsnorm(k, a["k_norm"][i], eps, act)
+    q, k = rope(q, theta, act), rope(k, theta, act)
+    x = x + lin(attend(q, k, v, allowed, act), W.lin(a["o"], i), act)
+    h = rmsnorm(x, blocks["ln2"][i], eps, act)
+    g = lin(h, W.lin(m["gate"], i), act)
+    u = lin(h, W.lin(m["up"], i), act)
+    return x + lin(F.silu(g) * u, W.lin(m["down"], i), act)
 
 
 def talker_pass(W: Weights, t: dict, x: torch.Tensor):
@@ -128,73 +129,13 @@ def talker_pass(W: Weights, t: dict, x: torch.Tensor):
     p = W.raw["talker"]
     act = W.act
     x = x.to(act)[None]
-    allowed = _causal(x.shape[1], x.device)
+    allowed = causal(x.shape[1], x.device)
     for i in range(t["n_layers"]):
-        x = _block(W, p["blocks"], i, x, n_heads=t["n_heads"],
-                   n_kv=t["n_kv_heads"], hd=t["head_dim"], eps=t["rms_eps"],
-                   theta=t["rope_theta"], qk_norm=True, allowed=allowed)
-    hidden = _rmsnorm(x, p["ln_f"], t["rms_eps"], act)[0]
-    return hidden, _lin(hidden, W.lin(p["head"]), act).float()
-
-
-def predictor_pass(W: Weights, c: dict, hidden: torch.Tensor,
-                   codes: torch.Tensor) -> torch.Tensor:
-    """Depth logits float32 [F, Q-1, V] of F frames: the talker hidden
-    [F, D] at each frame and its served codes [F, Q] (cb0, then the
-    residual depths), the two-position layout [hidden, cb0 embedding,
-    depth embeddings 0..Q-3], depth d scored at position d + 1."""
-    p = W.raw["predictor"]
-    act = W.act
-    n_res = codes.shape[1] - 1
-    emb = [hidden.to(act)[:, None],
-           W.table(p["cb0_emb"])[codes[:, 0]].to(act)[:, None]]
-    res_emb = W.table(p["res_emb"])
-    for d in range(n_res - 1):
-        emb.append(res_emb[d][codes[:, 1 + d]].to(act)[:, None])
-    x = torch.cat(emb, dim=1)
-    allowed = _causal(x.shape[1], x.device)
-    for i in range(c["n_layers"]):
-        x = _block(W, p["blocks"], i, x, n_heads=c["n_heads"],
-                   n_kv=c["n_heads"], hd=c["head_dim"], eps=c["rms_eps"],
-                   theta=c["rope_theta"], qk_norm=c["qk_norm"],
-                   allowed=allowed)
-    h = _rmsnorm(x, p["ln_f"], c["rms_eps"], act)[:, 1:1 + n_res]
-    return torch.einsum("fdh,dvh->fdv", h.float(), W.table(p["heads"]))
-
-
-def request_inputs(W: Weights, cfg: dict, req: dict):
-    """(rows [L + N, D], L) of a served request: its prompt rows, then the
-    input of each decode step j = 0..N-1: frame j's codec embedding, the
-    sum of its residual embeddings and trailing-text row j. ``req`` holds
-    ``tokens``, ``speaker_id`` and ``codes`` [N + 1, Q] (the seed frame,
-    then the N rendered frames)."""
-    t = cfg["talker"]
-    p, cp = W.raw["talker"], W.raw["predictor"]
-    tables = {k: W.table(p[k]) for k in ("text_emb", "codec_emb", "spk_emb")}
-    rows, trailing = prompt.assemble(tables, t, req["tokens"],
-                                     req["speaker_id"])
-    codes = req["codes"][:-1]                                  # frames 0..N-1
-    n = codes.shape[0]
-    res_emb = W.table(cp["res_emb"])
-    fb = tables["codec_emb"][codes[:, 0]]
-    for d in range(codes.shape[1] - 1):
-        fb = fb + res_emb[d][codes[:, 1 + d]]
-    steps = torch.arange(n, device=fb.device).clamp(max=trailing.shape[0] - 1)
-    return torch.cat([rows, fb + trailing[steps]]), rows.shape[0]
-
-
-def judge_tokens(W: Weights, cfg: dict, req: dict, block: int = 512):
-    """(cb0 logits [N + 1, V], depth logits [N + 1, Q - 1, V]) at every
-    served frame of one request, teacher-forced on its codes."""
-    x, L = request_inputs(W, cfg, req)
-    hidden, logits = talker_pass(W, cfg["talker"], x)
-    h = hidden[L - 1:]                                         # frames 0..N
-    codes = req["codes"]
-    depth = torch.cat([
-        predictor_pass(W, cfg["code_predictor"], h[i:i + block],
-                       codes[i:i + block])
-        for i in range(0, codes.shape[0], block)])
-    return logits[L - 1:], depth
+        x = block(W, p["blocks"], i, x, n_heads=t["n_heads"],
+                  n_kv=t["n_kv_heads"], hd=t["head_dim"], eps=t["rms_eps"],
+                  theta=t["rope_theta"], qk_norm=True, allowed=allowed)
+    hidden = rmsnorm(x, p["ln_f"], t["rms_eps"], act)[0]
+    return hidden, lin(hidden, W.lin(p["head"]), act).float()
 
 
 # --------------------------------------------------------------------------
@@ -248,31 +189,31 @@ def code2wav(W: Weights, c: dict, codes: torch.Tensor) -> torch.Tensor:
     pre = p["pre"]
     H, nh, nkv = c["hidden"], c["n_heads"], c["n_kv_heads"]
     hd = H // nh
-    allowed = _causal(T, x.device, c["sliding_window"])
+    allowed = causal(T, x.device, c["sliding_window"])
     for i in range(c["n_layers"]):
         a, m = pre["blocks"]["attn"], pre["blocks"]["mlp"]
-        h = _rmsnorm(x, pre["blocks"]["ln1"][i], c["rms_eps"], act)
-        q = _rope(_lin(h, W.lin(a["q"], i), act).reshape(1, T, nh, hd),
+        h = rmsnorm(x, pre["blocks"]["ln1"][i], c["rms_eps"], act)
+        q = rope(lin(h, W.lin(a["q"], i), act).reshape(1, T, nh, hd),
                   c["rope_theta"], act)
-        k = _rope(_lin(h, W.lin(a["k"], i), act).reshape(1, T, nkv, hd),
+        k = rope(lin(h, W.lin(a["k"], i), act).reshape(1, T, nkv, hd),
                   c["rope_theta"], act)
-        v = _lin(h, W.lin(a["v"], i), act).reshape(1, T, nkv, hd)
-        o = _lin(_attend(q, k, v, allowed, act), W.lin(a["o"], i), act)
+        v = lin(h, W.lin(a["v"], i), act).reshape(1, T, nkv, hd)
+        o = lin(attend(q, k, v, allowed, act), W.lin(a["o"], i), act)
         x = x + o * pre["blocks"]["ls_attn"][i].to(act)
-        h = _rmsnorm(x, pre["blocks"]["ln2"][i], c["rms_eps"], act)
-        g = _lin(h, W.lin(m["gate"], i), act)
-        u = _lin(h, W.lin(m["up"], i), act)
-        y = _lin(F.silu(g) * u, W.lin(m["down"], i), act)
+        h = rmsnorm(x, pre["blocks"]["ln2"][i], c["rms_eps"], act)
+        g = lin(h, W.lin(m["gate"], i), act)
+        u = lin(h, W.lin(m["up"], i), act)
+        y = lin(F.silu(g) * u, W.lin(m["down"], i), act)
         x = x + y * pre["blocks"]["ls_mlp"][i].to(act)
-    h = _rmsnorm(x, pre["ln_f"], c["rms_eps"], act).transpose(1, 2)
+    h = rmsnorm(x, pre["ln_f"], c["rms_eps"], act).transpose(1, 2)
     for stage, r in zip(p["upsample"], c["upsampling_ratios"]):
         h = _tconv(W, h, stage["tconv"], r)
         cnx = stage["cnx"]
         d = _conv(W, h, cnx["dw"], groups=h.shape[1])
         d = _layer_norm(d.transpose(1, 2), cnx["ln_w"], cnx["ln_b"], act)
-        d = _lin(d, W.table(cnx["pw1"]["w"]), act, cnx["pw1"]["b"])
+        d = lin(d, W.table(cnx["pw1"]["w"]), act, cnx["pw1"]["b"])
         d = F.gelu(d, approximate="none")
-        d = _lin(d, W.table(cnx["pw2"]["w"]), act, cnx["pw2"]["b"])
+        d = lin(d, W.table(cnx["pw2"]["w"]), act, cnx["pw2"]["b"])
         h = h + (d * cnx["gamma"].to(act)).transpose(1, 2)
     dec = p["decoder"]
     w = _conv(W, h, dec["conv_in"])

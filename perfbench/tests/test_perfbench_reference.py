@@ -7,22 +7,21 @@ import numpy as np
 import pytest
 import torch
 
-from tiny import LIMITS, TINY, TINY_DENSE, make_root
+from tiny import LIMITS, SEED, TINY, TINY_DENSE, family, make_root
 
 from harness.bench import run_cell
 from harness.program import build_model, port_config
-from harness.weights import make_weights
 from reference import model as ref
-from reference.prompt import assemble, text_tokens
+from reference.prompt import text_tokens
 from reference.quant import REFERENCE
 
-SEED = 2**31 + 12345
+PORT = family("port_geometry")
 
 
 @pytest.fixture(scope="module")
 def tiny_model():
     torch.manual_seed(0)
-    raw = make_weights(TINY, SEED, "cpu")
+    raw = PORT.weights.make_weights(TINY, SEED, "cpu")
     return raw, build_model(TINY, port_config(TINY), raw, torch.device("cpu"))
 
 
@@ -40,8 +39,8 @@ def test_prompt_rows_equal_the_programs(tiny_model, text, instruct, voice):
     emb, pad, trailing = model.generator.assemble_prompt_full(prompt)
     toks = text_tokens(text, instruct)
     assert list(prompt.text_tokens) == toks
-    rows, buf = assemble(raw["talker"], TINY["talker"], toks,
-                         TINY["speakers"].index(voice))
+    rows, buf = PORT.reference.assemble(raw["talker"], TINY["talker"], toks,
+                                        TINY["speakers"].index(voice))
     assert torch.equal(emb[0, pad:], rows)
     assert torch.equal(trailing[0], buf)
 

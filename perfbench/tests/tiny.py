@@ -14,6 +14,10 @@ for _p in (os.path.join(REPO, "src"), os.path.join(REPO, "perfbench")):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
+from harness.manifest import Family, Manifest  # noqa: E402
+
+SEED = 2**31 + 12345
+
 TINY = {
     "name": "tiny",
     "source": "https://huggingface.co/Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
@@ -57,6 +61,11 @@ TINY_DENSE = {**TINY, "weights": {"format": "bfloat16"}}
 
 LIMITS = {"talker_gap": 1e-4, "predictor_gap": 1e-4, "talker_gap_mean": 1e-5,
           "predictor_gap_mean": 1e-5, "pcm_err": 1e-3, "frames_short": 0}
+
+
+def family(name: str) -> Family:
+    """The repo's model family ``name``, loaded as a run loads it."""
+    return Manifest(REPO).family(name)
 
 
 def make_root(tmp: str, config: dict = TINY) -> str:
